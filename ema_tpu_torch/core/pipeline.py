@@ -14,20 +14,26 @@ Stage layout (stage names as in the JAX package's Metrics):
   8. em[host]: per-barcode clouds + EM (groups.run_em_host_batch)
   9. select+emit[host]: selection + SAM emission
 
+The SW scorer is chosen as the JAX Aligner chooses it
+(ema_tpu/core/pipeline.py:311-340, 640-661): ``Aligner(sw_impl=...)`` or,
+when that is None, EMA_TPU_SW_IMPL=scan|banded|banded_pallas|banded16|
+native and EMA_TPU_SW_TIER64=1 (see ``resolve_sw_impl``).  The default is
+the banded kernel on every device.
+
 Everything but the SW scorer and the orientation is the JAX package's
 jax-free host code, imported as it is; the numpy helpers that live in the
 jax-importing ema_tpu/core/pipeline.py are copied here under their names.
 Dropped from the JAX Aligner: compile-shape bucketing and the padded row
 layout with its ``row_map`` (torch runs eagerly, so owners index the
 oriented rows directly), the device mesh, greedy and device seeding,
-device locate, the tier64 split, device EM, the sharded aligner and the
-replay tap.
+device locate, device EM, the sharded aligner and the replay tap.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import threading
 from typing import Dict, Iterator, List, Optional
 
@@ -42,12 +48,42 @@ from ema_tpu.core.records import empty_records
 from ema_tpu.ops import chaining
 from ema_tpu_torch.core.batch import CandidateSet, ReadBatch
 from ema_tpu_torch.index.device import to_device_state
-from ema_tpu_torch.ops.sw import gather_score
+from ema_tpu_torch.ops.sw import PACKED_MAX_WL, gather_score
 from ema_tpu_torch.utils.backend import _tune_malloc, resolve_device
 
 WINDOW_PAD = 24          # slack around the chain diagonal for the SW window
 MAX_CIGAR_OPS = 64
 SW_CHUNK = 16 * 4096     # max candidate pairs per SW device call
+TIER64_MIN = 256         # fewest small corridors worth a split call
+
+# Aligner scorer -> gather_score scorer (native scores on the host)
+SW_IMPLS = {"banded": "banded", "tier64": "banded", "banded16": "banded16",
+            "scan": "scan", "native": None}
+
+
+def resolve_sw_impl(sw_impl: Optional[str] = None) -> str:
+    """The Aligner's SW scorer: banded, tier64, banded16, scan or native.
+
+    ``None`` reads the JAX package's switches (ema_tpu/core/pipeline.py:
+    311-340 and 262-274): EMA_TPU_SW_IMPL=scan|banded|banded_pallas|
+    banded16|native (any other value, or none, means banded), then
+    EMA_TPU_SW_TIER64=1 turns the banded scorer into tier64.  banded and
+    banded_pallas both mean the sw_banded kernel, which is the default on
+    every device.
+    """
+    if sw_impl is None:
+        env = os.environ.get("EMA_TPU_SW_IMPL")
+        sw_impl = env if env in ("scan", "banded", "banded_pallas",
+                                 "banded16", "native") else "banded"
+        if sw_impl in ("banded", "banded_pallas") \
+                and os.environ.get("EMA_TPU_SW_TIER64", "0") == "1":
+            sw_impl = "tier64"
+    if sw_impl == "banded_pallas":
+        sw_impl = "banded"
+    if sw_impl not in SW_IMPLS:
+        raise ValueError(f"unknown sw_impl {sw_impl!r} (one of "
+                         f"{', '.join(SW_IMPLS)}, banded_pallas)")
+    return sw_impl
 
 
 def orient_device(codes: torch.Tensor, lens: torch.Tensor):
@@ -72,9 +108,10 @@ class Aligner:
     """Holds the index state on ``device`` and runs batched alignment."""
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
-                 device):
+                 device, sw_impl: Optional[str] = None):
         _tune_malloc()
         self.device = resolve_device(device)
+        self.sw_impl = resolve_sw_impl(sw_impl)
         self.index = index
         cfg = cfg or config.RunConfig()
         if cfg.device_em:
@@ -218,7 +255,8 @@ class Aligner:
         # --- device: score all candidate windows -----------------------
         with self._mst("sw[device]", co.shape[0]):
             sw = self._score_windows(oriented_dev, olens_dev, co, win_lo,
-                                     win_len, wl=cands.wl)
+                                     win_len, wl=cands.wl,
+                                     host=(oriented, olens))
 
         # --- mate rescue ------------------------------------------------
         ro, rlo, rlen = self._rescue_windows(
@@ -228,7 +266,8 @@ class Aligner:
                 # rescue = full SW over the insert window (mem_matesw):
                 # the corridor is the whole window, no chain constraint
                 rsw = self._score_windows(oriented_dev, olens_dev, ro, rlo,
-                                          rlen, wl=rlen.astype(np.int32))
+                                          rlen, wl=rlen.astype(np.int32),
+                                          host=(oriented, olens))
             min_rescue = params.min_seed_len * params.match
             keep_r = rsw["score"] >= min_rescue
             co = np.concatenate([co, ro[keep_r]])
@@ -246,17 +285,24 @@ class Aligner:
                 seedcov, weight, sw, params, frac_rep_read)
 
     def _score_windows(self, oriented_dev, olens_dev, owners, win_lo,
-                       win_len, wl=None) -> Dict[str, np.ndarray]:
-        """Score candidate (oriented read, window) pairs on the device.
+                       win_len, wl=None, host=None,
+                       scorer=None) -> Dict[str, np.ndarray]:
+        """Score candidate (oriented read, window) pairs with the chosen
+        scorer (ema_tpu/core/pipeline.py:596-705).
 
         ``oriented_dev``/``olens_dev`` are the device copies of the
         oriented reads (row r = oriented read r); only the per-candidate
         index vectors cross to the device, and the kernel reads the reads
         and the windows from there (the text lives in ``self.text_dev``).
+        ``host`` = (oriented, olens) as numpy is what ``native`` scores.
         ``wl`` (int32 [N]) is the per-candidate logical corridor (None =
         the full window): diagonals k >= wl[b] are excluded, so a
-        candidate's result depends only on its own chain geometry.  Large
-        sets run in SW_CHUNK pieces (ema_tpu/core/pipeline.py:596-705).
+        candidate's result depends only on its own chain geometry; scan
+        scores the whole window.  tier64 sends the corridors of at most
+        64 lanes to the packed kernel and the rest to the banded one (all
+        small: packed; at least 256 small: split; else banded), before
+        large sets run in SW_CHUNK pieces.  ``scorer`` fixes the
+        gather_score scorer of this call (the split's halves).
         """
         N = owners.shape[0]
         if N == 0:
@@ -264,11 +310,40 @@ class Aligner:
             return {"score": z, "qb": z, "qe": z, "ref_end": z}
         wl_cand = np.maximum(wl if wl is not None else win_len,
                              1).astype(np.int32)
+        p = self.cfg.aligner
+        kw = dict(match=p.match, mismatch=p.mismatch, gap_open=p.gap_open,
+                  gap_extend=p.gap_extend, clip=p.clip_penalty)
+        if self.sw_impl == "native":
+            # the threaded host C++ banded DP straight off the packed text
+            oriented, olens = host
+            return native.sw_banded_native(
+                oriented, olens, self.index.text, owners, win_lo, win_len,
+                int(wl_cand.max()), wl=wl_cand, **kw)
+        if scorer is None:
+            scorer = SW_IMPLS[self.sw_impl]
+            if self.sw_impl == "tier64":
+                small = wl_cand <= PACKED_MAX_WL
+                ns = int(small.sum())
+                if ns == N:
+                    scorer = "packed"
+                elif ns >= TIER64_MIN:
+                    out = {k: np.zeros(N, np.int32)
+                           for k in ("score", "qb", "qe", "ref_end")}
+                    for part, sc in ((small, "packed"), (~small, "banded")):
+                        idx = np.nonzero(part)[0]
+                        sub = self._score_windows(
+                            oriented_dev, olens_dev, owners[idx],
+                            win_lo[idx], win_len[idx], wl=wl_cand[idx],
+                            host=host, scorer=sc)
+                        for k in out:
+                            out[k][idx] = sub[k]
+                    return out
         if N > SW_CHUNK:
             outs = [self._score_windows(
                         oriented_dev, olens_dev, owners[s:s + SW_CHUNK],
                         win_lo[s:s + SW_CHUNK], win_len[s:s + SW_CHUNK],
-                        wl=wl_cand[s:s + SW_CHUNK])
+                        wl=wl_cand[s:s + SW_CHUNK], host=host,
+                        scorer=scorer)
                     for s in range(0, N, SW_CHUNK)]
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
@@ -276,13 +351,10 @@ class Aligner:
             return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
                 self.device)
 
-        p = self.cfg.aligner
         out = gather_score(
             self.text_dev, oriented_dev, olens_dev, put(owners, np.int32),
             put(win_lo, np.int64), put(win_len, np.int32),
-            put(wl_cand, np.int32), match=p.match, mismatch=p.mismatch,
-            gap_open=p.gap_open, gap_extend=p.gap_extend,
-            clip=p.clip_penalty).cpu().numpy()
+            put(wl_cand, np.int32), scorer=scorer, **kw).cpu().numpy()
         return {k: np.ascontiguousarray(out[:, c])
                 for c, k in enumerate(("score", "qb", "qe", "ref_end"))}
 

@@ -1,11 +1,15 @@
-"""Build and load the sw_banded CUDA kernel (nvcc into a plain-C shared
-library, bound with ctypes).
+"""Build and load the SW CUDA kernels: one nvcc call per ``csrc/<name>.cu``
+into a plain-C shared library, bound with ctypes.
 
-Nothing compiles at import: the first CUDA call builds
-``csrc/sw_banded.cu`` for ``sm_90a`` into ``build/ema_tpu_torch/`` at the
-checkout root, keyed by a hash of the source and the flags, and later
-calls (and later processes) load the cached library.  A failed build
-raises; there is no fallback.
+Nothing compiles at import: the first CUDA call of a kernel builds its
+source for ``sm_90a`` into ``build/ema_tpu_torch/`` at the checkout root,
+keyed by a hash of the source, the shared headers and the flags, and
+later calls (and later processes) load the cached library.
+``load_all()`` starts every missing build at once, one nvcc process per
+source.  A failed build raises; there is no fallback.
+
+Each library exports ``<name>_launch`` with one signature (see
+``LAUNCH_ARGTYPES``) and, for the banded kernels, ``<name>_max_wl``.
 """
 
 from __future__ import annotations
@@ -16,14 +20,22 @@ import os
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "sw_banded.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ema_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+KERNELS = ("sw_banded", "sw_banded16", "sw_banded_packed", "sw_batch")
+
+_p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+# (text, text_n, oriented, L, olens, owners, win_lo, win_len, wl, N,
+#  max_wl, match, mismatch, gap_open, gap_extend, clip, out, stream)
+LAUNCH_ARGTYPES = [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i64, _i32,
+                   _i32, _i32, _i32, _i32, _i32, _p, _p]
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -34,33 +46,77 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def load_library() -> ctypes.CDLL:
-    """The built sw_banded library (building it on first use)."""
-    global _lib
+def _so_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(names) -> None:
+    """Build the missing libraries of ``names``, all nvcc runs at once."""
+    todo = [(n, _so_path(n)) for n in names]
+    todo = [(n, so) for n, so in todo if not so.exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for name, so in todo:
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        procs.append((name, so, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, so, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu (exit "
+                          f"{proc.returncode}):\n{err}")
+            continue
+        # ptxas -v: registers, spills and shared memory per kernel
+        so.with_suffix(".log").write_text(err)
+        os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def _bind(name: str) -> SimpleNamespace:
+    lib = ctypes.CDLL(str(_so_path(name)))
+    launch = getattr(lib, f"{name}_launch")
+    launch.restype = ctypes.c_int
+    launch.argtypes = LAUNCH_ARGTYPES
+    max_wl = getattr(lib, f"{name}_max_wl", None)
+    if max_wl is not None:
+        max_wl.restype = ctypes.c_int
+        max_wl.argtypes = []
+    return SimpleNamespace(name=name, lib=lib, launch=launch, max_wl=max_wl)
+
+
+def load_library(name: str) -> SimpleNamespace:
+    """Kernel ``name`` (building it on first use): ``.launch`` and, for
+    the banded kernels, ``.max_wl``."""
+    if name not in KERNELS:
+        raise ValueError(f"unknown kernel {name!r}")
     with _lock:
-        if _lib is not None:
-            return _lib
-        key = hashlib.sha256(_SRC.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        so = BUILD_DIR / f"libsw_banded_{key[:16]}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                                str(_SRC)], capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {_SRC} "
-                                   f"(exit {r.returncode}):\n{r.stderr}")
-            # ptxas -v: registers, spills and shared memory per kernel
-            so.with_suffix(".log").write_text(r.stderr)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
-        lib.sw_banded_max_wl.restype = ctypes.c_int
-        lib.sw_banded_max_wl.argtypes = []
-        lib.sw_banded_launch.restype = ctypes.c_int
-        lib.sw_banded_launch.argtypes = [
-            p, i64, p, i64, p, p, p, p, p, i64, i32,
-            i32, i32, i32, i32, i32, p, p]
-        _lib = lib
-        return lib
+        if name not in _libs:
+            _compile([name])
+            _libs[name] = _bind(name)
+        return _libs[name]
+
+
+def load_all() -> dict:
+    """Every kernel, the missing ones built in parallel."""
+    with _lock:
+        _compile([n for n in KERNELS if n not in _libs])
+        for n in KERNELS:
+            if n not in _libs:
+                _libs[n] = _bind(n)
+        return dict(_libs)
+
+
+def ptxas_log(name: str) -> str:
+    """What ptxas -v said when ``name`` was built (registers, spills)."""
+    log = _so_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""

@@ -1,19 +1,29 @@
-"""Banded Smith-Waterman scoring: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Smith-Waterman scoring: the four CUDA kernels' wrappers and their plain
+PyTorch versions.
 
 ``gather_score`` is what the Aligner calls: for candidate b it scores
 oriented read ``owners[b]`` against the text window
-``[win_lo[b], win_lo[b] + win_len[b])`` inside the diagonal corridor
-``k < wl[b]``, and returns int32 [N, 4] columns (score, qb, qe, ref_end).
-On CUDA tensors it launches the hand-written kernel
-(``csrc/sw_banded.cu``, the port of ema_tpu/ops/sw_pallas.py:
-_banded_kernel with the gather of ema_tpu/core/pipeline.py:_gather_score
-fused in); on CPU tensors it runs the plain version.  A CUDA tensor never
-runs the plain version, and a failed build or launch raises.
+``[win_lo[b], win_lo[b] + win_len[b])`` and returns int32 [N, 4] columns
+(score, qb, qe, ref_end).  ``scorer`` picks the recurrence, each the port
+of one Pallas kernel of ema_tpu/ops/sw_pallas.py with the gather of
+ema_tpu/core/pipeline.py:_gather_score fused in:
 
-The plain versions follow the JAX package exactly:
-``sw_score_banded_ref`` is ema_tpu/ops/sw.py:sw_score_banded (the same
-recurrences, log-step max-plus scan and tie rules) and
+  banded    csrc/sw_banded.cu         _banded_kernel          corridor k < wl
+  banded16  csrc/sw_banded16.cu       _banded_kernel16        the same, int16
+  packed    csrc/sw_banded_packed.cu  _banded_kernel_packed   wl <= 64
+  scan      csrc/sw_batch.cu          _kernel                 whole window
+
+On CUDA tensors the scorer's kernel launches; on CPU tensors its plain
+version runs.  A CUDA tensor never runs the plain version, and a failed
+build or launch raises.
+
+The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
+is ema_tpu/ops/sw.py:sw_score_banded, ``sw_score_banded16_ref`` the same
+sweep in int16 state as sw_pallas.py:_banded_kernel16,
+``sw_score_banded_packed_ref`` the contract of
+sw_pallas.py:sw_score_banded_pallas_packed (the sweep at w_band = 64; its
+8-bit start-row packing, which wraps for reads past 256 bp, is not
+copied), and ``sw_score_batch_ref`` ema_tpu/ops/sw.py:sw_score_batch.
 ``gather_score_ref`` adds the window gather of pipeline.py:95-109
 (columns outside the text read the sentinel 5; win_lo may be negative).
 """
@@ -25,11 +35,14 @@ import threading
 import torch
 
 NEG = -(1 << 28)
+NEG16 = -16384            # int16 sentinel of sw_pallas.py:466
+PACKED_MAX_WL = 64        # one 64-lane segment per candidate
+MAX_READ = 1023           # the d_key tie packing keeps rows in 10 bits
 
 
 class LaunchCounter:
-    """Thread-safe count of kernel launches (chunks score on a thread
-    pool, so a bare ``+= 1`` could lose updates)."""
+    """Thread-safe counter (chunks score on a thread pool, so a bare
+    ``+= 1`` could lose updates)."""
 
     def __init__(self) -> None:
         self._n = 0
@@ -49,8 +62,137 @@ class LaunchCounter:
             return self._n
 
 
-# launches of the sw_banded kernel by gather_score
-SW_LAUNCHES = LaunchCounter()
+# scorer -> the CUDA kernel (and csrc/<kernel>.cu) that serves it
+KERNEL_OF = {"banded": "sw_banded", "banded16": "sw_banded16",
+             "packed": "sw_banded_packed", "scan": "sw_batch"}
+# launches of each kernel by gather_score (CUDA tensors only)
+LAUNCHES = {k: LaunchCounter() for k in KERNEL_OF.values()}
+# gather_score calls per scorer, on any device
+CALLS = {s: LaunchCounter() for s in KERNEL_OF}
+
+
+def reset_counts() -> None:
+    for c in (*LAUNCHES.values(), *CALLS.values()):
+        c.reset()
+
+
+def _check_read_len(m: int) -> None:
+    if m > MAX_READ:
+        raise ValueError(f"banded SW tie-break packing requires read "
+                         f"length < 1024 (got m={m})")
+
+
+def _check_int16_range(m, w_band, match, mismatch, gap_open, gap_extend,
+                       clip) -> None:
+    """int16 state must not wrap: scores stay within m * match, the
+    diagonal offsets within w_band * gap_extend, NEG16 minus both gaps and
+    the clip stays above -32768."""
+    top = (m * max(match, 1) + w_band * gap_extend + gap_open + gap_extend
+           + clip + mismatch)
+    if top >= -NEG16 // 2:
+        raise ValueError(f"banded16: scores would leave the int16 range "
+                         f"(m={m}, w_band={w_band})")
+
+
+def _row_sweep(reads, read_lens, refs, ref_lens, W, wl, dtype, neg, *,
+               match, mismatch, gap_open, gap_extend, clip):
+    """Banded row sweep over diagonal lanes k in [0, W), state in
+    ``dtype`` with sentinel ``neg``; returns the per-lane bests (value,
+    row, start row), int32 [B, W] each.  Line for line the recurrences of
+    ema_tpu/ops/sw.py:240-289 (sw_pallas.py:513-567 for int16): scalars
+    are cast to ``dtype`` per row, as the Pallas kernel builds its [B, 1]
+    columns, so no operation widens the state."""
+    B, m = reads.shape
+    dev = reads.device
+    i32 = torch.int32
+
+    def const(v):
+        return torch.tensor(v, dtype=dtype, device=dev)
+
+    goe = gap_open + gap_extend
+    reads = reads.to(i32)
+    k_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
+    rl = read_lens.to(i32)[:, None]
+    nl = ref_lens.to(i32)[:, None]
+    kmask = k_idx < wl.to(i32)[:, None]
+    ref_pad = torch.nn.functional.pad(refs.to(i32), (0, m + W), value=5)
+    ke = (k_idx * gap_extend).to(dtype)
+    neg_t, zero_t = const(neg), const(0)
+
+    def full(fill, cols=W):
+        return torch.full((B, cols), fill, dtype=dtype, device=dev)
+
+    def shift_left(x, fill):
+        return torch.cat([x[:, 1:], full(fill, 1)], dim=1)
+
+    def shift_right(x, s, fill):
+        return torch.cat([full(fill, s), x[:, :-s]], dim=1)
+
+    Hp, Fp, SHp, SFp = full(neg), full(neg), full(0), full(0)
+    bestv, besti, bests = full(neg), full(0), full(0)
+    for i in range(1, m + 1):
+        ref_row = ref_pad[:, i - 1:i - 1 + W]
+        read_col = reads[:, i - 1:i]
+        valid = (i <= rl) & (i + k_idx <= nl) & kmask
+        row = const(i)
+
+        sub = torch.where((read_col >= 4) | (ref_row >= 4), -1,
+                          torch.where(read_col == ref_row, match,
+                                      -mismatch)).to(dtype)
+        fresh = const(0 if i == 1 else -clip)
+        Hd = torch.maximum(Hp, fresh) + sub
+        Sd = torch.where(Hp >= fresh, SHp, row - const(1))
+
+        f_open = shift_left(Hp, neg) - const(goe)
+        f_ext = shift_left(Fp, neg) - const(gap_extend)
+        F = torch.maximum(f_open, f_ext)
+        SF = torch.where(f_open >= f_ext, shift_left(SHp, 0),
+                         shift_left(SFp, 0))
+
+        # horizontal gaps: exclusive max-plus prefix scan over the row;
+        # ties keep the nearer source (strict > takes the farther one)
+        H0 = torch.maximum(Hd, F)
+        S0 = torch.where(Hd >= F, Sd, SF)
+        A = torch.where(valid, H0 + ke, neg_t)
+        P = shift_right(A, 1, neg)
+        PS = shift_right(S0, 1, 0)
+        s = 1
+        while s < W:
+            P2 = shift_right(P, s, neg)
+            PS2 = shift_right(PS, s, 0)
+            PS = torch.where(P2 > P, PS2, PS)
+            P = torch.maximum(P, P2)
+            s *= 2
+        E = P - ke - const(gap_open)
+        # merge with the reference tie priority: diag >= horizontal >= vert
+        H = torch.maximum(H0, E)
+        SH = torch.where(Hd >= torch.maximum(E, F), Sd,
+                         torch.where(E >= F, PS, SF))
+        H = torch.where(valid, H, neg_t)
+        F = torch.where(valid, F, neg_t)
+
+        end_adj = torch.where(rl == i, zero_t, const(-clip))
+        cand = torch.where(valid, H + end_adj, neg_t)
+        improve = cand > bestv
+        bestv = torch.where(improve, cand, bestv)
+        besti = torch.where(improve, row, besti)
+        bests = torch.where(improve, SH, bests)
+        Hp, Fp, SHp, SFp = H, F, SH, SF
+    return bestv.to(i32), besti.to(i32), bests.to(i32)
+
+
+def _pick_lane(bestv, besti, bests) -> torch.Tensor:
+    """Best lane; ties minimise d = 2i + k, then i (sw.py:296-303)."""
+    W = bestv.shape[1]
+    k_idx = torch.arange(W, dtype=torch.int32, device=bestv.device)[None, :]
+    maxv = bestv.max(dim=1, keepdim=True).values
+    d_key = (2 * besti + k_idx) * 1024 + besti
+    key = torch.where(bestv == maxv, d_key, 1 << 30)
+    bk = key.argmin(dim=1, keepdim=True)
+    bi = besti.gather(1, bk)[:, 0]
+    bs = bests.gather(1, bk)[:, 0]
+    return torch.stack([maxv[:, 0], bs, bi, bi + bk[:, 0].to(torch.int32)],
+                       dim=1).to(torch.int32)
 
 
 def sw_score_banded_ref(reads: torch.Tensor, read_lens: torch.Tensor,
@@ -66,104 +208,172 @@ def sw_score_banded_ref(reads: torch.Tensor, read_lens: torch.Tensor,
     recurrences of ema_tpu/ops/sw.py:174-310; ``wl`` masks lanes
     k >= wl[b] so the result does not depend on w_band.
     """
+    _check_read_len(reads.shape[1])
+    best = _row_sweep(reads, read_lens, refs, ref_lens, int(w_band), wl,
+                      torch.int32, NEG, match=match, mismatch=mismatch,
+                      gap_open=gap_open, gap_extend=gap_extend, clip=clip)
+    return _pick_lane(*best)
+
+
+def sw_score_banded16_ref(reads: torch.Tensor, read_lens: torch.Tensor,
+                          refs: torch.Tensor, ref_lens: torch.Tensor,
+                          w_band: int, match: int = 1, mismatch: int = 4,
+                          gap_open: int = 6, gap_extend: int = 1,
+                          clip: int = 5, *,
+                          wl: torch.Tensor) -> torch.Tensor:
+    """The row sweep in torch.int16 state, as sw_pallas.py:_banded_kernel16:
+    the sentinel NEG16, int16 per-row columns, the final reduction in
+    int32 and a no-alignment score (<= NEG16 // 2) reported as NEG
+    (sw_pallas.py:643-645)."""
+    m = reads.shape[1]
+    _check_read_len(m)
+    _check_int16_range(m, int(w_band), match, mismatch, gap_open,
+                       gap_extend, clip)
+    best = _row_sweep(reads, read_lens, refs, ref_lens, int(w_band), wl,
+                      torch.int16, NEG16, match=match, mismatch=mismatch,
+                      gap_open=gap_open, gap_extend=gap_extend, clip=clip)
+    out = _pick_lane(*best)
+    out[:, 0] = torch.where(out[:, 0] <= NEG16 // 2, NEG, out[:, 0])
+    return out
+
+
+def sw_score_banded_packed_ref(reads: torch.Tensor, read_lens: torch.Tensor,
+                               refs: torch.Tensor, ref_lens: torch.Tensor,
+                               wl: torch.Tensor, match: int = 1,
+                               mismatch: int = 4, gap_open: int = 6,
+                               gap_extend: int = 1,
+                               clip: int = 5) -> torch.Tensor:
+    """The pair-packed tier's contract: candidates 2b and 2b+1 share one
+    128-lane row as two 64-lane segments, and each segment is the row
+    sweep at w_band = 64 (sw_pallas.py:796-868).  An odd batch gains the
+    wrapper's dummy tail candidate (read and window length 0, wl 0),
+    which is scored and dropped.  Start rows are kept whole, so reads
+    past 256 bp get the sw_score_banded result, not the JAX kernel's
+    start row modulo 256 (its P & 255 at sw_pallas.py:754)."""
     B, m = reads.shape
-    W = int(w_band)
-    if m >= 1024:
-        raise ValueError(f"banded SW tie-break packing requires read "
-                         f"length < 1024 (got m={m})")
+    _check_read_len(m)
+    if B and int(wl.max()) > PACKED_MAX_WL:
+        raise ValueError(f"the packed tier takes wl <= {PACKED_MAX_WL} "
+                         f"(got {int(wl.max())})")
+    if B % 2:
+        def tail(x, fill):
+            pad = torch.full((1, *x.shape[1:]), fill, dtype=x.dtype,
+                             device=x.device)
+            return torch.cat([x, pad])
+        reads, refs = tail(reads, 4), tail(refs, 5)
+        read_lens, ref_lens, wl = (tail(read_lens, 0), tail(ref_lens, 0),
+                                   tail(wl, 0))
+    # row 2b is segment 0 of pair b, row 2b + 1 segment 1: a segment's
+    # shifts and its scan (which stops at 32) never cross into the other
+    best = _row_sweep(reads, read_lens, refs, ref_lens, PACKED_MAX_WL, wl,
+                      torch.int32, NEG, match=match, mismatch=mismatch,
+                      gap_open=gap_open, gap_extend=gap_extend, clip=clip)
+    return _pick_lane(*best)[:B]
+
+
+def sw_score_batch_ref(reads: torch.Tensor, read_lens: torch.Tensor,
+                       refs: torch.Tensor, ref_lens: torch.Tensor,
+                       match: int = 1, mismatch: int = 4,
+                       gap_open: int = 6, gap_extend: int = 1,
+                       clip: int = 5) -> torch.Tensor:
+    """Unbanded anti-diagonal sweep over the whole window: lanes are read
+    rows 0..m, d = i + j runs 1..m+n.  Line for line
+    ema_tpu/ops/sw.py:37-168; returns int32 [B, 4] with qe = the best
+    row and ref_end = its d minus its row."""
+    B, m = reads.shape
+    n = refs.shape[1]
     dev = reads.device
     i32 = torch.int32
     goe = gap_open + gap_extend
     reads = reads.to(i32)
-    k_idx = torch.arange(W, dtype=i32, device=dev)[None, :]
-    rl = read_lens.to(i32)[:, None]
+    i_idx = torch.arange(m + 1, dtype=i32, device=dev)[None, :]
+
+    def init(fill):
+        return torch.full((B, m + 1), fill, dtype=i32, device=dev)
+
+    H1 = torch.where(i_idx == 0, 0, NEG).to(i32).expand(B, -1).clone()
+    H2, V1, D1 = init(NEG), init(NEG), init(NEG)
+    S_H1, S_H2, S_V1, S_D1 = init(0), init(0), init(0), init(0)
+    bestv, bestd, bests = init(NEG), init(0), init(0)
+    read_pad = torch.nn.functional.pad(reads, (1, 0), value=4)
+    ref_pad = torch.nn.functional.pad(refs.to(i32), (0, m + 1), value=5)
+    rdiag = init(5)
+    rlen = read_lens.to(i32)[:, None]
+    valid_i = (i_idx >= 1) & (i_idx <= rlen)
+    end_adj = torch.where(i_idx == rlen, 0, -clip).to(i32)
+    fresh = torch.where(i_idx == 1, 0, -clip).to(i32)
+    fresh_sh = i_idx - 1
     nl = ref_lens.to(i32)[:, None]
-    kmask = k_idx < wl.to(i32)[:, None]
-    ref_pad = torch.nn.functional.pad(refs.to(i32), (0, m + W), value=5)
+    neg_col = torch.full((B, 1), NEG, dtype=i32, device=dev)
+    zero_col = torch.zeros((B, 1), dtype=i32, device=dev)
+    neg_t = torch.tensor(NEG, dtype=i32, device=dev)
 
-    def full(fill, cols=W):
-        return torch.full((B, cols), fill, dtype=i32, device=dev)
+    def shift_down(x, fill):
+        return torch.cat([fill, x[:, :-1]], dim=1)
 
-    def shift_left(x, fill):
-        return torch.cat([x[:, 1:], full(fill, 1)], dim=1)
+    for d in range(1, m + n + 1):
+        j_idx = d - i_idx
+        valid = valid_i & (j_idx >= 1) & (j_idx <= nl)
+        rdiag = shift_down(rdiag, ref_pad[:, d - 1:d])
 
-    def shift_right(x, s, fill):
-        return torch.cat([full(fill, s), x[:, :-s]], dim=1)
+        v_open = shift_down(H1, neg_col) - goe
+        v_ext = shift_down(V1, neg_col) - gap_extend
+        V = torch.maximum(v_open, v_ext)
+        S_V = torch.where(v_open >= v_ext, shift_down(S_H1, zero_col),
+                          shift_down(S_V1, zero_col))
 
-    ke = k_idx * gap_extend
-    # int32 scalars: a where() of two Python scalars would widen to int64
-    match_t = torch.tensor(match, dtype=i32, device=dev)
-    zero_t = torch.tensor(0, dtype=i32, device=dev)
-    Hp, Fp, SHp, SFp = full(NEG), full(NEG), full(0), full(0)
-    bestv, besti, bests = full(NEG), full(0), full(0)
-    for i in range(1, m + 1):
-        ref_row = ref_pad[:, i - 1:i - 1 + W]
-        read_col = reads[:, i - 1:i]
-        valid = (i <= rl) & (i + k_idx <= nl) & kmask
+        d_open = H1 - goe
+        d_ext = D1 - gap_extend
+        D = torch.maximum(d_open, d_ext)
+        S_D = torch.where(d_open >= d_ext, S_H1, S_D1)
 
-        sub = torch.where((read_col >= 4) | (ref_row >= 4), -1,
-                          torch.where(read_col == ref_row, match_t,
-                                      -mismatch))
-        fresh = 0 if i == 1 else -clip
-        Hd = torch.clamp(Hp, min=fresh) + sub
-        Sd = torch.where(Hp >= fresh, SHp, i - 1)
+        H2_up = shift_down(H2, neg_col)
+        sub = torch.where((read_pad >= 4) | (rdiag >= 4), -1,
+                          torch.where(read_pad == rdiag, match,
+                                      -mismatch)).to(i32)
+        Hdiag = torch.maximum(H2_up, fresh) + sub
+        diag_s = torch.where(H2_up >= fresh, shift_down(S_H2, zero_col),
+                             fresh_sh)
 
-        f_open = shift_left(Hp, NEG) - goe
-        f_ext = shift_left(Fp, NEG) - gap_extend
-        F = torch.maximum(f_open, f_ext)
-        SF = torch.where(f_open >= f_ext, shift_left(SHp, 0),
-                         shift_left(SFp, 0))
+        H = torch.maximum(torch.maximum(Hdiag, D), V)
+        S_H = torch.where(Hdiag >= torch.maximum(D, V), diag_s,
+                          torch.where(D >= V, S_D, S_V))
+        H = torch.where(valid, H, neg_t)
+        V = torch.where(valid, V, neg_t)
+        D = torch.where(valid, D, neg_t)
 
-        # horizontal gaps: exclusive max-plus prefix scan over the row;
-        # ties keep the nearer source (strict > takes the farther one)
-        H0 = torch.maximum(Hd, F)
-        S0 = torch.where(Hd >= F, Sd, SF)
-        A = torch.where(valid, H0 + ke, NEG)
-        P = shift_right(A, 1, NEG)
-        PS = shift_right(S0, 1, 0)
-        s = 1
-        while s < W:
-            P2 = shift_right(P, s, NEG)
-            PS2 = shift_right(PS, s, 0)
-            PS = torch.where(P2 > P, PS2, PS)
-            P = torch.maximum(P, P2)
-            s *= 2
-        E = P - ke - gap_open
-        # merge with the reference tie priority: diag >= horizontal >= vert
-        H = torch.maximum(H0, E)
-        SH = torch.where(Hd >= torch.maximum(E, F), Sd,
-                         torch.where(E >= F, PS, SF))
-        H = torch.where(valid, H, NEG)
-        F = torch.where(valid, F, NEG)
-
-        end_adj = torch.where(rl == i, zero_t, -clip)
-        cand = torch.where(valid, H + end_adj, NEG)
+        cand = torch.where(valid, H + end_adj, neg_t)
         improve = cand > bestv
         bestv = torch.where(improve, cand, bestv)
-        besti = torch.where(improve, i, besti)
-        bests = torch.where(improve, SH, bests)
-        Hp, Fp, SHp, SFp = H, F, SH, SF
+        bestd = torch.where(improve, d, bestd)
+        bests = torch.where(improve, S_H, bests)
+        H2, H1, V1, D1 = H1, H, V, D
+        S_H2, S_H1, S_V1, S_D1 = S_H1, S_H, S_V, S_D
 
-    # best lane; ties minimise d = 2i + k, then i
+    # best row; ties at equal score pick the smallest d, then the
+    # smallest row (argmax of the first maximum)
     maxv = bestv.max(dim=1, keepdim=True).values
-    d_key = (2 * besti + k_idx) * 1024 + besti
-    key = torch.where(bestv == maxv, d_key, 1 << 30)
-    bk = key.argmin(dim=1, keepdim=True)
-    bi = besti.gather(1, bk)[:, 0]
-    bs = bests.gather(1, bk)[:, 0]
-    return torch.stack([maxv[:, 0], bs, bi, bi + bk[:, 0].to(i32)],
-                       dim=1).to(i32)
+    tie = torch.where(bestv == maxv, (m + n + 1) - bestd, -1)
+    bi = tie.argmax(dim=1, keepdim=True)
+    bd = bestd.gather(1, bi)[:, 0]
+    bs = bests.gather(1, bi)[:, 0]
+    bi = bi[:, 0].to(i32)
+    return torch.stack([maxv[:, 0], bs, bi, bd - bi], dim=1).to(i32)
 
 
 def gather_score_ref(text, oriented, olens, owners, win_lo, win_len, wl, *,
-                     match=1, mismatch=4, gap_open=6, gap_extend=1,
-                     clip=5) -> torch.Tensor:
-    """Plain version of the fused kernel: gather, then the row sweep.
+                     scorer="banded", match=1, mismatch=4, gap_open=6,
+                     gap_extend=1, clip=5) -> torch.Tensor:
+    """Plain version of the fused kernels: gather, then the scorer.
 
     Read rows come by owner; window columns outside [0, n) read the
-    sentinel 5 (ema_tpu/core/pipeline.py:95-109).  The band is the widest
-    corridor of the call; ``wl`` makes the result independent of it.
+    sentinel 5 (ema_tpu/core/pipeline.py:95-109).  The banded band is the
+    widest corridor of the call; ``wl`` makes the result independent of
+    it.  ``scan`` ignores ``wl`` and scores the whole window, as
+    pipeline.py:124-126 does.
     """
+    if scorer not in KERNEL_OF:
+        raise ValueError(f"gather_score: unknown scorer {scorer!r}")
     N = owners.shape[0]
     dev = text.device
     if N == 0:
@@ -176,10 +386,17 @@ def gather_score_ref(text, oriented, olens, owners, win_lo, win_len, wl, *,
     cols = win_lo.long()[:, None] + torch.arange(w_max, device=dev)[None, :]
     gathered = text[cols.clamp(0, n - 1)].to(torch.int32)
     wins = torch.where((cols < 0) | (cols >= n), 5, gathered)
-    return sw_score_banded_ref(reads, rlens, wins, win_len,
-                               max(int(wl.max()), 1), match=match,
-                               mismatch=mismatch, gap_open=gap_open,
-                               gap_extend=gap_extend, clip=clip, wl=wl)
+    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
+              gap_extend=gap_extend, clip=clip)
+    if scorer == "scan":
+        return sw_score_batch_ref(reads, rlens, wins, win_len, **kw)
+    if scorer == "packed":
+        return sw_score_banded_packed_ref(reads, rlens, wins, win_len, wl,
+                                          **kw)
+    fn = sw_score_banded16_ref if scorer == "banded16" else \
+        sw_score_banded_ref
+    return fn(reads, rlens, wins, win_len, max(int(wl.max()), 1), wl=wl,
+              **kw)
 
 
 def _check(name, t, dtype, ndim, dev):
@@ -190,19 +407,18 @@ def _check(name, t, dtype, ndim, dev):
 
 
 def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
-                   match, mismatch, gap_open, gap_extend, clip):
+                   scorer, match, mismatch, gap_open, gap_extend, clip):
     from ema_tpu_torch.ops import _build
 
+    name = KERNEL_OF[scorer]
     dev = text.device
     N = owners.shape[0]
     R, L = oriented.shape
-    lib = _build.load_library()
+    lib = _build.load_library(name)
     out = torch.empty((N, 4), dtype=torch.int32, device=dev)
     if N == 0:
         return out
-    if L >= 1024:
-        raise ValueError(f"banded SW tie-break packing requires read "
-                         f"length < 1024 (got L={L})")
+    _check_read_len(L)
     owners = owners.to(torch.int32).contiguous()
     win_lo = win_lo.to(torch.int64).contiguous()
     win_len = win_len.to(torch.int32).contiguous()
@@ -210,38 +426,47 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     oriented = oriented.contiguous()
     olens = olens.to(torch.int32).contiguous()
     # bounds the kernel trusts: checked here, on the host, before launch
-    w_lo, w_hi = (int(v) for v in torch.aminmax(wl))
     o_lo, o_hi = (int(v) for v in torch.aminmax(owners))
-    max_wl = lib.sw_banded_max_wl()
-    if w_lo < 1 or w_hi > max_wl:
-        raise ValueError(f"gather_score: wl must lie in [1, {max_wl}] for "
-                         f"the sw_banded kernel (got [{w_lo}, {w_hi}])")
     if o_lo < 0 or o_hi >= R:
         raise ValueError(f"gather_score: owners out of range [0, {R})")
+    w_hi = 0
+    if scorer != "scan":           # scan scores the whole window
+        w_lo, w_hi = (int(v) for v in torch.aminmax(wl))
+        max_wl = lib.max_wl()
+        if w_lo < 1 or w_hi > max_wl:
+            raise ValueError(f"gather_score: wl must lie in [1, {max_wl}] "
+                             f"for the {name} kernel (got [{w_lo}, "
+                             f"{w_hi}])")
+        if scorer == "banded16":
+            _check_int16_range(L, w_hi, match, mismatch, gap_open,
+                               gap_extend, clip)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sw_banded_launch(
+        rc = lib.launch(
             text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
             olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
             win_len.data_ptr(), wl.data_ptr(), N, w_hi, match, mismatch,
             gap_open, gap_extend, clip, out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"sw_banded kernel launch failed: CUDA error "
-                           f"{rc}")
-    SW_LAUNCHES.add()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    LAUNCHES[name].add()
     return out
 
 
 def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
-                 match=1, mismatch=4, gap_open=6, gap_extend=1,
-                 clip=5) -> torch.Tensor:
+                 scorer="banded", match=1, mismatch=4, gap_open=6,
+                 gap_extend=1, clip=5) -> torch.Tensor:
     """Score candidates; int32 [N, 4] = (score, qb, qe, ref_end).
 
     text uint8 [n] (2-bit codes), oriented uint8 [R, L], olens int32 [R];
     owners int32 [N], win_lo int64 [N], win_len int32 [N], wl int32 [N],
-    all on one device.  CUDA: the sw_banded kernel; CPU: the plain
-    version.
+    all on one device.  ``scorer`` is one of banded, banded16, packed
+    (wl <= 64) or scan (wl ignored).  CUDA: the scorer's kernel; CPU: its
+    plain version.
     """
+    if scorer not in KERNEL_OF:
+        raise ValueError(f"gather_score: unknown scorer {scorer!r} (one of "
+                         f"{', '.join(KERNEL_OF)})")
     dev = text.device
     _check("text", text, torch.uint8, 1, dev)
     _check("oriented", oriented, torch.uint8, 2, dev)
@@ -250,12 +475,13 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
     _check("win_lo", win_lo, torch.int64, 1, dev)
     _check("win_len", win_len, torch.int32, 1, dev)
     _check("wl", wl, torch.int32, 1, dev)
-    kw = dict(match=match, mismatch=mismatch, gap_open=gap_open,
-              gap_extend=gap_extend, clip=clip)
+    kw = dict(scorer=scorer, match=match, mismatch=mismatch,
+              gap_open=gap_open, gap_extend=gap_extend, clip=clip)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"gather_score: unsupported device {dev}")
+    CALLS[scorer].add()
     if dev.type == "cuda":
         return _launch_kernel(text, oriented, olens, owners, win_lo,
                               win_len, wl, **kw)
-    if dev.type == "cpu":
-        return gather_score_ref(text, oriented, olens, owners, win_lo,
-                                win_len, wl, **kw)
-    raise ValueError(f"gather_score: unsupported device {dev}")
+    return gather_score_ref(text, oriented, olens, owners, win_lo,
+                            win_len, wl, **kw)

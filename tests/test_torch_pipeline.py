@@ -63,6 +63,23 @@ def test_golden_sam_cpu():
     assert golden_sam(torch.device("cpu")) == want
 
 
+@pytest.mark.parametrize("sw_impl", ["banded16", "tier64", "scan",
+                                     "native"])
+def test_golden_sam_cpu_every_scorer(sw_impl):
+    """Whichever SW scorer the Aligner is given, the golden world gives
+    tests/golden/expected.sam byte for byte."""
+    from ema_tpu_torch.ops.sw import CALLS, reset_counts
+
+    with open(GOLDEN) as f:
+        want = f.read()
+    reset_counts()
+    assert golden_sam(torch.device("cpu"), sw_impl) == want
+    used = {s for s, c in CALLS.items() if c.value}
+    # tier64: chained corridors go packed, rescue windows (~680) banded
+    assert used == {"banded16": {"banded16"}, "tier64": {"packed", "banded"},
+                    "scan": {"scan"}, "native": set()}[sw_impl]
+
+
 def test_sam_equals_jax_on_repeat_world():
     """The repeat world of tests/test_pipeline.py:129 (2 Mbp, three
     repeat families, 80 barcodes): both packages must emit the same SAM
@@ -89,6 +106,22 @@ def test_sam_equals_jax_on_repeat_world():
     got = Aligner(idx, device="cpu").align_batch_to_sam(
         ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2))
     assert len(got) >= 2 * len(ids)
+    assert got == want
+
+
+def test_long_reads_equal_jax():
+    """Two pairs of 600 bp reads, one mate found only by mate rescue
+    through a 1183-lane corridor (chip_smoke.long_read_world): the
+    port's SAM equals the JAX package's."""
+    from chip_smoke import long_read_world
+
+    genome, pairs = long_read_world()
+    idx = build_index({"c": genome})
+    want = jax_pipeline.Aligner(idx).align_batch_to_sam(
+        jax_pipeline.ReadBatch.from_pairs(*pairs))
+    got = Aligner(idx, device="cpu").align_batch_to_sam(
+        ReadBatch.from_pairs(*pairs))
+    assert len(got) == 4 and all(ln.split("\t")[5] != "*" for ln in got)
     assert got == want
 
 
@@ -135,9 +168,16 @@ genome = sim.rand_genome(rng, 40_000)
 gs = sim.to_str(genome)
 ids, bc_strs, bcs, s1, q1, s2, q2, _ = sim.simulate_pairs(
     rng, gs, n_barcodes=2, pairs_per_frag=(3, 6), frag_len=10_000)
-lines = Aligner(build_index({"c": genome}), device="cpu").align_batch_to_sam(
+idx = build_index({"c": genome})
+lines = Aligner(idx, device="cpu").align_batch_to_sam(
     ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2))
 assert lines, "no SAM lines"
+os.environ["EMA_TPU_SW_IMPL"] = "scan"
+scan = Aligner(idx, device="cpu")
+assert scan.sw_impl == "scan"
+assert scan.align_batch_to_sam(
+    ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)) == lines
+del os.environ["EMA_TPU_SW_IMPL"]
 ref = os.path.join(tmp, "ref.fa")
 with open(ref, "w") as f:
     f.write(">c\n" + gs + "\n")

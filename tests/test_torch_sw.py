@@ -19,8 +19,9 @@ from ema_tpu import native
 from ema_tpu.core.pipeline import _gather_score
 from ema_tpu.ops.sw import sw_score_banded
 from ema_tpu.ops.sw_pallas import sw_score_banded_pallas
-from ema_tpu_torch.ops.sw import (SW_LAUNCHES, LaunchCounter, gather_score,
-                                  gather_score_ref, sw_score_banded_ref)
+from ema_tpu_torch.ops.sw import (LAUNCHES, LaunchCounter, gather_score,
+                                  gather_score_ref, reset_counts,
+                                  sw_score_banded_ref)
 from ema_tpu_torch.utils.backend import resolve_device
 
 KEYS = ("score", "qb", "qe", "ref_end")
@@ -129,13 +130,13 @@ def test_cpu_tensors_never_count_a_launch():
     rng = np.random.default_rng(5)
     text, oriented, olens, owners, win_lo, win_len, wl = _gather_inputs(
         rng, False)
-    SW_LAUNCHES.reset()
+    reset_counts()
     gather_score(torch.from_numpy(text), torch.from_numpy(oriented),
                  torch.from_numpy(olens),
                  torch.from_numpy(owners.astype(np.int32)),
                  torch.from_numpy(win_lo), torch.from_numpy(win_len),
                  torch.from_numpy(wl))
-    assert SW_LAUNCHES.value == 0
+    assert all(c.value == 0 for c in LAUNCHES.values())
 
 
 def test_gather_score_rejects_bad_inputs():
