@@ -16,21 +16,37 @@ run exits non-zero:
      the mate-rescue shape and edge sets (read lengths 0..1023, N runs,
      negative win_lo, windows past the text end, corridors up to 4096),
      with kernel and plain times;
-  3. golden: the world of tests/test_golden.py aligned on the card with
-     each scorer (banded, banded16, tier64, scan) must reproduce
-     tests/golden/expected.sam byte for byte, launching its kernels;
-  4. main path: the bench world of bench.py (BASELINE config 1: 3 Mbp
+  3. fm: the torch FM-index ops on the card against the native host ops,
+     bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
+     the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
+     seed+locate against host compaction + locate; device and native
+     locate times;
+  4. em: the torch EM on the card against the host EM (numpy batch and
+     native flat EM) on the groups of one bench-world emit batch and on
+     synthetic batches of multimapping groups (10x and many-clouds), each
+     with a group deeper than 64 candidates: rtol 1e-9 / atol 1e-12, the
+     same bits on a second run, and card and host EM times;
+  5. golden: the world of tests/test_golden.py aligned on the card with
+     each scorer (banded, banded16, tier64, scan), with device and host
+     EM and with device locate must reproduce tests/golden/expected.sam
+     byte for byte, launching its kernels; greedy seeding on the device
+     must give greedy seeding on the host;
+  6. main path: the bench world of bench.py (BASELINE config 1: 3 Mbp
      genome, ~40.7k pairs of 100 bp reads) aligned on the card with each
      scorer, with pairs/s, launches and accuracy against the simulation
      truth; the default run also gives the stage split and re-scores one
      real chunk with the native host scorer, banded16 and tier64 must
      give the default's SAM records, and scan re-scores one real chunk
-     with its plain version on the card;
-  5. long reads: two pairs of 600 bp reads (mate-rescue corridors past
+     with its plain version on the card; then device EM on and off in
+     turns (on, off, off, on) with pairs/s, the em stage and 0 differing
+     records, one torch.profiler pass (device idle share, and whether the
+     EM stream overlaps the SW stream), and one pass with device locate
+     that must give the default's records;
+  7. long reads: two pairs of 600 bp reads (mate-rescue corridors past
      1024 lanes) aligned on the card must give the CPU path's SAM;
-  6. CLI: ``python -m ema_tpu_torch.cli align`` on a small input must
+  8. CLI: ``python -m ema_tpu_torch.cli align`` on a small input must
      give the library path's SAM records;
-  7. checks: synchronise, and no jax was imported.
+  9. checks: synchronise, and no jax was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before it the per-kernel JSON record; the last line
@@ -44,6 +60,7 @@ import importlib.util
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -131,10 +148,12 @@ def golden_world():
     return contigs, bc_strs, (ids, bcs, s1, q1, s2, q2)
 
 
-def golden_sam(device, sw_impl=None) -> str:
+def golden_sam(device, sw_impl=None, *, device_em=None, seed_impl=None,
+               seeding=None) -> str:
     """Header + SAM of the golden world aligned by the port on
-    ``device`` with the scorer ``sw_impl``, with the configuration of
-    tests/test_golden.py."""
+    ``device`` with the configuration of tests/test_golden.py, the scorer
+    ``sw_impl``, ``RunConfig(device_em=...)``, the seeder ``seeding``
+    (smem when None) and ``seed_impl``."""
     from ema_tpu import config
     from ema_tpu.core.samout import write_sam_header
     from ema_tpu.index import build_index
@@ -143,11 +162,12 @@ def golden_sam(device, sw_impl=None) -> str:
 
     contigs, _, pairs = golden_world()
     idx = build_index(contigs)
-    cfg = config.RunConfig(batch_size=512, seed=7)
+    cfg = config.RunConfig(batch_size=512, seed=7, device_em=device_em,
+                           aligner=config.AlignerParams(seeding=seeding))
     header = write_sam_header(idx.names, idx.lengths, cfg.read_group,
                               "golden", "golden")
-    lines = Aligner(idx, cfg, device=device,
-                    sw_impl=sw_impl).align_batch_to_sam(
+    lines = Aligner(idx, cfg, device=device, sw_impl=sw_impl,
+                    seed_impl=seed_impl).align_batch_to_sam(
         ReadBatch.from_pairs(*pairs))
     return header + "".join(lines)
 
@@ -392,17 +412,29 @@ def phase_golden(dev) -> None:
 
     with open(GOLDEN) as f:
         want = f.read()
-    for sw_impl, kernel in MAIN_KERNEL.items():
+    runs = [(sw_impl, dict(sw_impl=sw_impl), kernel)
+            for sw_impl, kernel in MAIN_KERNEL.items()]
+    runs += [(label, kw, "sw_banded") for label, kw in (
+        ("device_em", dict(device_em=True)),
+        ("host_em", dict(device_em=False)),
+        ("seed_device", dict(seed_impl="device")))]
+    for label, kw, kernel in runs:
         reset_counts()
-        got = golden_sam(dev, sw_impl)
+        got = golden_sam(dev, **kw)
         launches = _launched()
         n_rec = sum(1 for ln in got.splitlines() if not ln.startswith("@"))
-        log(f"golden [{sw_impl}]: {n_rec} records, identical={got == want}, "
+        log(f"golden [{label}]: {n_rec} records, identical={got == want}, "
             f"launches={launches}")
-        check(got == want, f"golden SAM under {sw_impl} differs from "
+        check(got == want, f"golden SAM under {label} differs from "
                            f"tests/golden/expected.sam")
         check(launches[kernel] > 0,
-              f"golden run under {sw_impl} never launched {kernel}")
+              f"golden run under {label} never launched {kernel}")
+    greedy = {impl: golden_sam(dev, seeding="greedy", seed_impl=impl)
+              for impl in ("native", "device")}
+    log(f"golden [greedy]: device seeding identical to host seeding="
+        f"{greedy['device'] == greedy['native']}")
+    check(greedy["device"] == greedy["native"],
+          "greedy seeding on the device gives another SAM than on the host")
 
 
 def _recording(aligner, captured):
@@ -422,17 +454,23 @@ def _recording(aligner, captured):
     return recording
 
 
-def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False):
-    """One scorer on the bench world: a warm-up pass (recording one SW
-    call), then 3 timed passes; returns (lines, stats, captured)."""
+def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
+              label=None, cfg_kw=None, seed_impl=None):
+    """One configuration on the bench world: a warm-up pass (recording one
+    SW call), then 3 timed passes; returns (lines, stats, captured).
+    stats: launches of the scorer's kernel over the 4 passes, pairs/s of
+    the best pass, the pass times and (``metrics``) each stage's
+    thread-seconds per timed pass."""
     from ema_tpu import config
     from ema_tpu.utils.metrics import Metrics
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
     from ema_tpu_torch.ops.sw import reset_counts
 
+    label = label or sw_impl
     n_pairs = len(pairs[0])
-    aligner = Aligner(idx, config.RunConfig(), device=dev, sw_impl=sw_impl)
+    aligner = Aligner(idx, config.RunConfig(**(cfg_kw or {})), device=dev,
+                      sw_impl=sw_impl, seed_impl=seed_impl)
 
     def run() -> list:
         return aligner.align_batch_to_sam(ReadBatch.from_pairs(*pairs))
@@ -457,36 +495,36 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False):
     aligner.metrics = None
 
     best = min(passes)
-    log(f"main path [{sw_impl}]: warm-up pass {warm} s, timed passes "
-        f"{passes} s, {n_pairs / best} pairs/s (best pass), {len(lines)} "
-        f"SAM records, launches over 4 passes={launches}, card: {card}")
+    log(f"main path [{label}]: device_em={aligner.cfg.device_em}, "
+        f"seed_impl={aligner.seed_impl}, warm-up pass {warm} s, timed "
+        f"passes {passes} s, {n_pairs / best} pairs/s (best pass), "
+        f"{len(lines)} SAM records, launches over 4 passes={launches}, "
+        f"card: {card}")
+    stages = {}
     if met is not None:
         log("stage split, thread-seconds summed over the 3 timed passes:")
         for name in sorted(met.wall):
             log(f"  {name}: {met.wall[name]} s n={met.items.get(name, 0)}")
+            stages[name] = met.wall[name] / 3
     ok, n = truth_share(lines, pairs[0], truth)
-    log(f"accuracy [{sw_impl}]: {ok}/{n} = {ok / max(n, 1)} mapped primary "
+    log(f"accuracy [{label}]: {ok}/{n} = {ok / max(n, 1)} mapped primary "
         f"records within +-5 bp of truth")
     kernel = MAIN_KERNEL[sw_impl]
     check(launches[kernel] > 0,
-          f"main path under {sw_impl} never launched {kernel}")
+          f"main path under {label} never launched {kernel}")
     check(n >= n_pairs and ok / n >= 0.98,
-          f"accuracy gate failed under {sw_impl} ({ok}/{n})")
+          f"accuracy gate failed under {label} ({ok}/{n})")
     check(bool(captured), "no SW call was recorded")
-    return lines, dict(launches=launches[kernel],
-                       pairs_per_s=n_pairs / best), captured
+    return lines, dict(launches=launches[kernel], pairs_per_s=n_pairs / best,
+                       passes=passes, stages=stages,
+                       device_em=aligner.cfg.device_em), captured
 
 
-def phase_main_path(dev, card: str) -> dict:
+def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
+    """The bench world under each scorer; returns (stats by scorer, the
+    default run's SAM lines)."""
     from ema_tpu import native
-    from ema_tpu.index import build_index
     from ema_tpu_torch.ops.sw import gather_score_ref
-
-    t0 = time.time()
-    genome, pairs, truth = bench_world()
-    idx = build_index({"chr1": genome})
-    log(f"bench world: {idx.n} bp, {len(pairs[0])} pairs, built in "
-        f"{time.time() - t0:.1f} s")
 
     stats = {}
     lines, stats["banded"], c = _main_run(dev, card, idx, pairs, truth,
@@ -525,7 +563,389 @@ def phase_main_path(dev, card: str) -> dict:
     log(f"plain scan re-score of one chunk on the card: "
         f"{len(c['owners'])} candidates, identical={same}")
     check(same, "sw_batch output differs from sw_score_batch_ref")
-    return stats
+    return stats, lines
+
+
+def phase_device_em(dev, card: str, idx, pairs, truth,
+                    default_lines) -> dict:
+    """Device EM on and off in turns (on, off, off, on) on the bench
+    world: pairs/s medians over the 6 timed passes of each, the em
+    stage's thread-seconds per pass, and 0 differing records."""
+    from ema_tpu_torch.core.pipeline import resolve_device_em
+
+    n_pairs = len(pairs[0])
+    runs, first = {True: [], False: []}, {}
+    for dem in (True, False, False, True):
+        lines, st, _ = _main_run(dev, card, idx, pairs, truth, "banded",
+                                 metrics=True, label=f"device_em={dem}",
+                                 cfg_kw=dict(device_em=dem))
+        check(st["device_em"] == dem, "RunConfig(device_em) was not kept")
+        runs[dem].append(st)
+        check(lines == first.setdefault(dem, lines),
+              f"two runs with device_em={dem} gave different records")
+    on, off = first[True], first[False]
+    n_diff = sum(a != b for a, b in zip(on, off)) + abs(len(on) - len(off))
+    out = {}
+    for dem, stage in ((True, "em[device]"), (False, "em[host]")):
+        rates = [n_pairs / t for st in runs[dem] for t in st["passes"]]
+        em_s = [st["stages"].get(stage, 0.0) for st in runs[dem]]
+        emit_s = [st["stages"].get("select+emit[host]", 0.0)
+                  for st in runs[dem]]
+        out[dem] = dict(median=statistics.median(rates), em_s=em_s)
+        log(f"in turns, device_em={dem}: median {out[dem]['median']} "
+            f"pairs/s over {len(rates)} passes {sorted(rates)}, {stage} "
+            f"thread-s per pass {em_s}, select+emit[host] {emit_s}, "
+            f"card: {card}")
+    log(f"device EM vs host EM: {n_diff} of {len(on)} SAM records differ; "
+        f"auto device_em on this card resolves to "
+        f"{resolve_device_em(None, dev)}")
+    check(n_diff == 0, f"{n_diff} SAM records differ between device and "
+                       f"host EM")
+    check(on == default_lines, "device EM records differ from the default")
+    return out
+
+
+SW_KERNEL_NAMES = ("rowsweep_kernel", "sw_banded16_kernel",
+                   "sw_batch_kernel")
+
+
+def _merge(iv) -> list:
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _span(iv) -> float:
+    return sum(b - a for a, b in iv)
+
+
+def _intersect(x, y) -> float:
+    """Total length of the intersection of two merged interval lists."""
+    i = j = 0
+    tot = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        tot += max(0.0, hi - lo)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tot
+
+
+def phase_profile(dev, card: str, idx, pairs) -> float:
+    """One default bench-world pass under torch.profiler: the device's
+    busy time by stream and its idle share, and how long the EM's side
+    stream ran while the SW kernels' stream was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ema_tpu import config
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+
+    aligner = Aligner(idx, config.RunConfig(), device=dev)
+    batch = ReadBatch.from_pairs(*pairs)
+    aligner.align_batch_to_sam(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        aligner.align_batch_to_sam(batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = [e for e in trace.get("traceEvents", [])
+              if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    check(events, "the profiler saw no device activity")
+    streams, sw_streams = {}, set()
+    for e in events:
+        st = e.get("args", {}).get("stream")
+        streams.setdefault(st, []).append((e["ts"], e["ts"] + e["dur"]))
+        if any(k in e["name"] for k in SW_KERNEL_NAMES):
+            sw_streams.add(st)
+    merged = {st: _merge(iv) for st, iv in streams.items()}
+    busy = _span(_merge([x for iv in streams.values() for x in iv])) / 1e6
+    sw = _merge([x for st in sw_streams for x in merged[st]])
+    other = _merge([x for st in streams if st not in sw_streams
+                    for x in merged[st]])
+    for st, iv in sorted(merged.items(), key=lambda kv: str(kv[0])):
+        log(f"profile: stream {st} ({'SW' if st in sw_streams else 'other'}"
+            f"): {len(streams[st])} device events, busy "
+            f"{_span(iv) / 1e3} ms")
+    idle = 1.0 - busy / wall
+    log(f"profile [device_em={aligner.cfg.device_em}]: pass {wall} s, "
+        f"device busy {busy * 1e3} ms, idle share {idle}; the other "
+        f"streams ran {_intersect(sw, other) / 1e3} ms of their "
+        f"{_span(other) / 1e3} ms while an SW stream was busy; card: "
+        f"{card}")
+    check(sw_streams, "the profiled pass launched no SW kernel")
+    return idle
+
+
+def phase_seed_device(dev, card: str, idx, pairs, truth,
+                      default_lines) -> None:
+    """The bench world with SMEM seeding and device locate, which must
+    give the default's records (the same number of passes, so the same
+    MI ids)."""
+    lines, st, _ = _main_run(dev, card, idx, pairs, truth, "banded",
+                             metrics=True, label="seed_impl=device",
+                             seed_impl="device")
+    log(f"main path [seed_impl=device]: identical to the default="
+        f"{lines == default_lines}")
+    check(st["stages"].get("locate[device]", 0) > 0, "no device locate ran")
+    check(lines == default_lines,
+          "device locate gives other records than the default")
+
+
+def _chunk(pairs, n_pairs: int = 4096):
+    """The reads of the bench world's first chunk in the pipeline's
+    barcode order: (codes uint8 [2P, L], lens int32 [2P])."""
+    from ema_tpu_torch.core.batch import ReadBatch
+
+    order = np.argsort(np.asarray(pairs[1]), kind="stable")[:n_pairs]
+    b = ReadBatch.from_pairs(*([x[i] for i in order] for x in pairs))
+    return b.codes, np.ascontiguousarray(b.lens, np.int32)
+
+
+def _host_ms(fn, reps: int = 3) -> float:
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def phase_fm(dev, card: str, genome, idx, pairs) -> None:
+    """The torch FM ops on the card against the native host ops, bit for
+    bit, on one bench-world chunk, at sa_rate 2 (the bench index) and 4."""
+    from ema_tpu import config, native
+    from ema_tpu.index import build_index
+    from ema_tpu_torch.core.pipeline import _compact_seed_hits, locate_rows
+    from ema_tpu_torch.index import fm
+
+    p = config.AlignerParams()
+    codes, lens = _chunk(pairs)
+    codes_dev = torch.from_numpy(codes).to(dev)
+    lens_dev = torch.from_numpy(lens).to(dev)
+    for ix in (idx, build_index({"chr1": genome}, sa_rate=4)):
+        tag = f"fm [sa_rate {ix.sa_rate}]"
+        fma = fm.FMIndexArrays.from_index(ix, dev)
+        # locate of the chunk's real SMEM hit rows
+        sm = native.smem_seed_batch(
+            ix.occ_blocks, ix.counts, ix.primary, ix.fm_n, codes, lens,
+            min_seed_len=p.min_seed_len,
+            split_len=int(p.min_seed_len * 1.5 + 0.499),
+            split_width=p.split_width, max_mem_intv=p.max_mem_intv)
+        rows = _compact_seed_hits(sm[:4], sm[4], p.max_hits_per_seed)[3]
+        want = native.locate_batch(ix, rows)
+        got = locate_rows(fma, rows)
+        check(np.array_equal(got, want),
+              f"{tag}: device locate differs from native.locate_batch")
+        rows_dev = torch.from_numpy(rows).to(dev)
+        dev_ms = _time_ms(lambda: fm.locate(fma, rows_dev), 10)
+        e2e_ms = _host_ms(lambda: locate_rows(fma, rows))
+        nat_ms = _host_ms(lambda: native.locate_batch(ix, rows))
+        log(f"{tag}: locate of {rows.shape[0]} hit rows identical; device "
+            f"{dev_ms} ms (CUDA events), {e2e_ms} ms with upload and "
+            f"readback; native locate_batch {nat_ms} ms; card: {card}")
+
+        # greedy seeding of the chunk's reads
+        sd = [a.cpu().numpy() for a in fm.seed_reads(
+            fma, codes_dev, lens_dev, max_seeds=16,
+            min_seed_len=p.seed_len)]
+        host = native.greedy_seed_batch(
+            ix.occ_blocks, ix.counts, ix.primary, ix.fm_n, codes, lens,
+            min_seed_len=p.seed_len, max_seeds=16)
+        live = np.arange(16)[None, :] < host[4][:, None]
+        same = np.array_equal(sd[4], host[4]) and all(
+            np.array_equal(np.where(live, a, 0), np.where(live, b, 0))
+            for a, b in zip(sd[:4], host[:4]))
+        log(f"{tag}: greedy seeds of {codes.shape[0]} reads "
+            f"({int(host[4].sum())} seeds) identical={same}")
+        check(same, f"{tag}: seed_reads differs from greedy_seed_batch")
+
+        # fused seed+locate against host compaction + native locate
+        budget = 4 * codes.shape[0]
+
+        def fused():
+            return fm.seed_locate_reads(
+                fma, codes_dev, lens_dev, max_seeds=16,
+                min_seed_len=p.seed_len, max_hits=p.max_hits_per_seed,
+                budget=budget, max_occ=p.max_occ)
+
+        def two_step():
+            h = native.greedy_seed_batch(
+                ix.occ_blocks, ix.counts, ix.primary, ix.fm_n, codes, lens,
+                min_seed_len=p.seed_len, max_seeds=16)
+            o, q, sl, r = _compact_seed_hits(h[:4], h[4],
+                                             p.max_hits_per_seed)
+            return o, q, sl, native.locate_batch(ix, r)
+
+        packed, total, frd = fused()
+        total = int(total)
+        want = two_step()
+        check(total == want[0].shape[0] and total <= budget,
+              f"{tag}: {total} fused hits against {want[0].shape[0]}")
+        ph = packed[:, :total].cpu().numpy()
+        s_w = np.where(live, host[1] - host[0], 0)
+        frac = np.minimum(np.where(s_w > p.max_occ, host[3], 0).sum(axis=1)
+                          / np.maximum(lens, 1), 1.0).astype(np.float32)
+        same = (all(np.array_equal(ph[i], want[i]) for i in range(4))
+                and np.array_equal(frd.cpu().numpy(), frac))
+        fused_ms = _host_ms(lambda: int(fused()[1]))
+        host_ms = _host_ms(two_step)
+        log(f"{tag}: seed+locate of {total} hits identical={same}; device "
+            f"{fused_ms} ms, native greedy + compaction + locate "
+            f"{host_ms} ms; card: {card}")
+        check(same, f"{tag}: seed_locate_reads differs from the host path")
+
+
+def deep_em_group(n_cand: int = 80, n_anchor: int = 40, bc: int = 9):
+    """The group of tests/test_em_jax.py:140, cut to ``n_cand``
+    candidates per mate (past EM_NATIVE_C = 64): anchor pairs in one
+    cloud and one pair whose candidates lie 1 Mb apart.  Returns
+    (records, idents)."""
+    from ema_tpu.core.records import empty_records
+
+    rows, idents = [], []
+    for p in range(n_anchor):
+        for mate in (0, 1):
+            rows.append((p, mate, 1000 + 60 * p + 200 * mate, mate, -1.0))
+            idents.append(f"a{p}")
+    for mate in (0, 1):
+        for c in range(n_cand):
+            rows.append((n_anchor, mate, 1500 + 200 * mate + c * 1_000_000,
+                         mate, -1.0 - 0.01 * c))
+            idents.append("deep")
+    recs = empty_records(len(rows))
+    for i, (p, mate, pos, rev, score) in enumerate(rows):
+        recs["pair"][i], recs["mate"][i], recs["pos"][i] = p, mate, pos
+        recs["rev"][i], recs["score"][i], recs["bc"][i] = rev, score, bc
+    return recs, np.array(idents, dtype=object)
+
+
+def _copy_states(states):
+    import dataclasses
+    return [dataclasses.replace(st, gammas=st.gammas.copy(),
+                                weights=st.weights.copy()) for st in states]
+
+
+def synthetic_em_group(rng, n_pairs: int, bc: int = 42):
+    """A barcode group with clouds, mates and multimaps, built as
+    tests/test_em_jax.py:_synthetic_group builds one: pairs in four
+    clusters, 1-3 candidates per mate (the extra ones up to 2 Mb away),
+    random strands and scores.  Returns (records, idents)."""
+    from ema_tpu.core.records import empty_records
+
+    rows, idents = [], []
+    base_positions = rng.integers(1, 5, 4).cumsum() * 100_000
+    for p in range(n_pairs):
+        cluster = int(rng.integers(0, len(base_positions)))
+        anchor = int(base_positions[cluster]) + int(rng.integers(0, 20_000))
+        for mate in (0, 1):
+            for c in range(int(rng.integers(1, 4))):
+                pos = anchor + (200 if mate else 0) + c * int(
+                    rng.integers(0, 2_000_000, 1)[0] if c else 0)
+                rows.append((p, mate, max(pos, 1), int(rng.integers(0, 2)),
+                             -float(rng.random() * 8)))
+                idents.append(f"r{p}")
+    recs = empty_records(len(rows))
+    for i, (p, mate, pos, rev, score) in enumerate(rows):
+        recs["pair"][i], recs["mate"][i], recs["pos"][i] = p, mate, pos
+        recs["rev"][i], recs["score"][i], recs["bc"][i] = rev, score, bc
+    return recs, np.array(idents, dtype=object)
+
+
+def phase_em(dev, card: str, idx, pairs) -> None:
+    """The torch EM on the card against the host EM (numpy batch and
+    native flat EM) on the groups of one bench-world emit batch (captured
+    before their EM ran), and on synthetic batches of multimapping groups
+    for a 10x and a many-clouds (tru) platform; each batch also holds a
+    group deeper than 64 candidates."""
+    from ema_tpu import config
+    from ema_tpu.core import groups
+    from ema_tpu_torch.core import em
+    from ema_tpu_torch.core import pipeline as tp
+    from ema_tpu_torch.core.batch import ReadBatch
+
+    captured = []
+    dispatch = tp.dispatch_em_batch
+
+    def recording(states, *a, **kw):
+        if not captured:
+            captured.extend(_copy_states(states))
+        return dispatch(states, *a, **kw)
+
+    tp.dispatch_em_batch = recording
+    try:
+        tp.Aligner(idx, config.RunConfig(device_em=True), device=dev
+                   ).align_batch_to_sam(ReadBatch.from_pairs(*pairs))
+    finally:
+        tp.dispatch_em_batch = dispatch
+    rng = np.random.default_rng(7)
+    batches = {"bench": captured}
+    for platform in ("10x", "tru"):
+        profile = config.get_platform_profile(platform)
+        batches[platform] = [groups.sweep_group(
+            *synthetic_em_group(rng, n, bc=i), profile, n_pairs_in_group=n)
+            for i, n in enumerate((45, 31, 60, 80, 120, 5))]
+    for name, states in batches.items():
+        profile = config.get_platform_profile("tru" if name == "tru"
+                                              else "10x")
+        states.append(groups.sweep_group(*deep_em_group(), profile))
+        gated = [st for st in states if st.needs_em]
+        shallow = [st for st in gated
+                   if st.cmask.shape[1] <= groups.EM_NATIVE_C]
+        check(len(shallow) >= 4 and len(gated) > len(shallow),
+              f"the {name} EM batch lacks shallow or deep EM-gated groups")
+
+        host, nat = _copy_states(states), _copy_states(states)
+        groups.run_em_host_batch(host)
+        for st in nat:
+            if st.needs_em:
+                groups.run_em_native(st)
+        stream = torch.cuda.Stream(dev)
+        runs = []
+        for _ in range(2):
+            run = _copy_states(states)
+            em.dispatch_em_batch(run, dev, stream)()
+            runs.append(run)
+        err = 0.0
+        for c1, c2, h, n in zip(*runs, host, nat):
+            for ref in (h, n):
+                np.testing.assert_allclose(c1.gammas, ref.gammas, rtol=1e-9,
+                                           atol=1e-12)
+                err = max(err, float(np.abs(c1.gammas - ref.gammas).max()))
+            check(np.array_equal(c1.gammas, c2.gammas),
+                  "two card EM runs on the same inputs gave different bits")
+        moved = sum(not np.array_equal(c.gammas, s.gammas)
+                    for c, s in zip(runs[0], states)
+                    if s.needs_em and s.cmask.shape[1] <= groups.EM_NATIVE_C)
+        check(name == "bench" or moved > 0,
+              f"the card EM moved no gamma of the {name} batch")
+
+        def card_em():
+            em.dispatch_em_batch(_copy_states(states), dev, stream)()
+
+        card_ms = statistics.median([_host_ms(card_em, 1) for _ in range(5)])
+        host_ms = statistics.median([_host_ms(
+            lambda: groups.run_em_host_batch(_copy_states(states)), 1)
+            for _ in range(3)])
+        log(f"em [{name}]: {len(states)} groups, {len(gated)} EM-gated "
+            f"({len(gated) - len(shallow)} deep), padded [G, E, C, NC] = "
+            f"{groups._pack_states(shallow)[1]}, the card EM moved the "
+            f"gammas of {moved} shallow groups; card vs host/native max abs "
+            f"diff {err} (rtol 1e-9, atol 1e-12), two card runs identical; "
+            f"EM ms (dispatch + wait, median) card {card_ms}, host "
+            f"run_em_host_batch {host_ms}; card: {card}")
 
 
 def long_read_world():
@@ -650,8 +1070,19 @@ def main() -> int:
             f"stores {sum(spills)} bytes")
 
     kstats = phase_kernel(dev, card)
+    from ema_tpu.index import build_index
+    t0 = time.time()
+    genome, pairs, truth = bench_world()
+    idx = build_index({"chr1": genome})
+    log(f"bench world: {idx.n} bp, {len(pairs[0])} pairs, sa_rate "
+        f"{idx.sa_rate}, built in {time.time() - t0:.1f} s")
+    phase_fm(dev, card, genome, idx, pairs)
+    phase_em(dev, card, idx, pairs)
     phase_golden(dev)
-    main_stats = phase_main_path(dev, card)
+    main_stats, default_lines = phase_main_path(dev, card, idx, pairs, truth)
+    phase_device_em(dev, card, idx, pairs, truth, default_lines)
+    phase_profile(dev, card, idx, pairs)
+    phase_seed_device(dev, card, idx, pairs, truth, default_lines)
     phase_long_reads(dev)
     phase_cli(dev)
 

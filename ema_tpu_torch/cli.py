@@ -2,20 +2,25 @@
 
     python -m ema_tpu_torch.cli align -r ref.fa --device cuda
         (-s bucket | -1 r1.fq [-2 r2.fq]) [-o out.sam] [-R RG]
-        [-p platform] [-d] [-t T]
+        [-p platform] [-d] [-t T] [--device-em] [--seeding greedy|smem]
     python -m ema_tpu_torch.cli index -r ref.fa [-o ref.fa.emaidx.npz]
 
 ``align`` follows ema_tpu/cli.py:288-472 and reuses its jax-free
 ``_load_or_build_index``; ``index`` delegates to ``ema_tpu.cli``.  The
 device is always named: ``--device cuda`` runs the SW kernel on the GPU
 and fails if there is none; ``--device cpu`` runs the plain PyTorch
-version.  The other ``ema_tpu`` modes and align options (-x, sharding,
-manifests, --sort, profiling) are not ported yet.
+version.  ``--device-em`` runs the cloud EM on the device and
+``--seeding`` picks the seed finder, as in ema_tpu/cli.py:333-339;
+EMA_TPU_SEED_IMPL and EMA_TPU_SW_IMPL choose where greedy seeding and
+locate run and which SW kernel scores.  The other ``ema_tpu`` modes and
+align options (-x, sharding, manifests, --sort, profiling) are not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from ema_tpu import config
@@ -54,6 +59,13 @@ def _align(rest) -> int:
                     help="in-flight chunks (1 disables overlap)")
     ap.add_argument("--device", required=True,
                     help="torch device: cuda, cuda:N or cpu")
+    ap.add_argument("--device-em", action="store_true",
+                    help="run the cloud-EM iterations on the device")
+    ap.add_argument("--seeding", choices=("greedy", "smem"), default=None,
+                    help="seed finder: greedy maximal-suffix chop (on the "
+                         "device or the host, see EMA_TPU_SEED_IMPL) or "
+                         "exact SMEM enumeration with BWA re-seeding in "
+                         "host C++ (smem, the default)")
     a = ap.parse_args(rest)
 
     if (a.fqx is not None) == (a.fq1 is not None or a.fq2 is not None):
@@ -87,10 +99,16 @@ def _align(rest) -> int:
         sys.stderr.write("error: contig-sharded indexes are not ported "
                          "yet\n")
         return 1
+    aligner_params = config.DEFAULT_ALIGNER_PARAMS
+    if a.seeding:
+        aligner_params = dataclasses.replace(aligner_params,
+                                             seeding=a.seeding)
     cfg = config.RunConfig(platform=profile, read_group=rg,
+                           aligner=aligner_params,
                            apply_density_opt=a.dens,
                            inflight_chunks=(max(a.threads, 1)
-                                            if a.threads else None))
+                                            if a.threads else None),
+                           device_em=True if a.device_em else None)
     aligner = Aligner(idx, cfg, device=a.device)
     header = write_sam_header(idx.names, idx.lengths, rg, __version__,
                               "ema_tpu_torch align " + " ".join(rest))

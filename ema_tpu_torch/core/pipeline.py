@@ -4,29 +4,39 @@ per-barcode EM.  The counterpart of ema_tpu/core/pipeline.py:191-1311.
 Stage layout (stage names as in the JAX package's Metrics):
 
   1. encode reads (host); revcomp rows derived on the device
-  2. seed[smem,host]: SMEM enumeration + re-seeding (native C++)
-  3. locate[native,host]: SA locate of the seed hits (native C++)
+  2. seed: seed[smem,host] (SMEM enumeration + re-seeding, native C++), or
+     greedy seeding as seed[native,host] or seed+locate[device]
+     (index/fm.seed_locate_reads; seed[device] when the hits overflow
+     its budget)
+  3. locate: locate[native,host] (native C++) or locate[device]
+     (index/fm.locate)
   4. chain[host]: ops/chaining.py
   5. sw[device]: banded SW of every candidate window (ops/sw.gather_score:
      the CUDA kernel on a GPU, its plain version on the CPU)
   6. mate rescue windows + a second sw[device] pass
   7. traceback+finalize[host]: CIGARs for survivors (native C++)
-  8. em[host]: per-barcode clouds + EM (groups.run_em_host_batch)
+  8. em[device] (core/em.dispatch_em_batch, launched before the previous
+     batch's emission and waited for after it) or em[host]
+     (groups.run_em_host_batch)
   9. select+emit[host]: selection + SAM emission
 
-The SW scorer is chosen as the JAX Aligner chooses it
-(ema_tpu/core/pipeline.py:311-340, 640-661): ``Aligner(sw_impl=...)`` or,
-when that is None, EMA_TPU_SW_IMPL=scan|banded|banded_pallas|banded16|
-native and EMA_TPU_SW_TIER64=1 (see ``resolve_sw_impl``).  The default is
-the banded kernel on every device.
+The Aligner takes the JAX Aligner's choices (pipeline.py:198-386):
+``RunConfig(device_em=...)`` (``resolve_device_em``),
+``RunConfig(aligner=AlignerParams(seeding="smem"|"greedy"))``,
+``Aligner(seed_impl=...)`` or EMA_TPU_SEED_IMPL=native|device for where
+greedy seeding and locate run (``resolve_seed_impl``), and
+``Aligner(sw_impl=...)`` or EMA_TPU_SW_IMPL / EMA_TPU_SW_TIER64 for the
+SW scorer (``resolve_sw_impl``).  With ``device="cpu"`` the device paths
+run their torch code on the CPU.
 
-Everything but the SW scorer and the orientation is the JAX package's
-jax-free host code, imported as it is; the numpy helpers that live in the
-jax-importing ema_tpu/core/pipeline.py are copied here under their names.
-Dropped from the JAX Aligner: compile-shape bucketing and the padded row
-layout with its ``row_map`` (torch runs eagerly, so owners index the
-oriented rows directly), the device mesh, greedy and device seeding,
-device locate, device EM, the sharded aligner and the replay tap.
+Everything but the device code is the JAX package's jax-free host code,
+imported as it is; the numpy helpers that live in the jax-importing
+ema_tpu/core/pipeline.py are copied here under their names.  Dropped
+from the JAX Aligner: compile-shape bucketing and the padded row layout
+with its ``row_map`` (torch runs eagerly, so owners index the oriented
+rows directly), the device mesh, the CPU placement of the jitted EM, the
+128 MB occ rule for device locate (``resolve_seed_impl``), the sharded
+aligner and the replay tap.
 """
 
 from __future__ import annotations
@@ -47,6 +57,8 @@ from ema_tpu.core import score as score_mod
 from ema_tpu.core.records import empty_records
 from ema_tpu.ops import chaining
 from ema_tpu_torch.core.batch import CandidateSet, ReadBatch
+from ema_tpu_torch.core.em import dispatch_em_batch
+from ema_tpu_torch.index import fm
 from ema_tpu_torch.index.device import to_device_state
 from ema_tpu_torch.ops.sw import PACKED_MAX_WL, gather_score
 from ema_tpu_torch.utils.backend import _tune_malloc, resolve_device
@@ -55,6 +67,10 @@ WINDOW_PAD = 24          # slack around the chain diagonal for the SW window
 MAX_CIGAR_OPS = 64
 SW_CHUNK = 16 * 4096     # max candidate pairs per SW device call
 TIER64_MIN = 256         # fewest small corridors worth a split call
+LOCATE_CHUNK = 8 * 8192  # max rows per device locate call
+MAX_SEEDS = 16           # greedy seeds per read
+SEED_IMPLS = ("native", "device")
+SEEDINGS = ("smem", "greedy")
 
 # Aligner scorer -> gather_score scorer (native scores on the host)
 SW_IMPLS = {"banded": "banded", "tier64": "banded", "banded16": "banded16",
@@ -86,6 +102,41 @@ def resolve_sw_impl(sw_impl: Optional[str] = None) -> str:
     return sw_impl
 
 
+def resolve_seed_impl(seed_impl: Optional[str] = None) -> str:
+    """Where greedy seeding and locate run: native (host C++) or device
+    (index/fm on the Aligner's device).
+
+    ``None`` reads EMA_TPU_SEED_IMPL=native|device; anything else, or
+    nothing, means native on every device.  The JAX package moves to the
+    device once the occ table passes 128 MB (ema_tpu/core/pipeline.py:
+    366-386), but on an H100 80GB HBM3 at 700 W the torch locate, with
+    its upload and readback, was slower than native at sa_rate 4, the
+    rate of every index that large: 5.61 ms against 4.95 ms for 46,171
+    rows of a 200 Mbp index with 150 MB of occ (PERF.md).  So the device
+    is an explicit choice.  SMEM seeding always runs on the host; only
+    its locate follows this choice.
+    """
+    if seed_impl is None:
+        env = os.environ.get("EMA_TPU_SEED_IMPL")
+        seed_impl = env if env in SEED_IMPLS else "native"
+    if seed_impl not in SEED_IMPLS:
+        raise ValueError(f"unknown seed_impl {seed_impl!r} (one of "
+                         f"{', '.join(SEED_IMPLS)})")
+    return seed_impl
+
+
+def resolve_device_em(device_em: Optional[bool],
+                      device: torch.device) -> bool:
+    """``RunConfig.device_em``: True runs the torch EM on the Aligner's
+    device (the CPU too), False the numpy host EM.  ``None`` is the device
+    EM on a card, where the in-turn bench-world runs of chip_smoke.py on
+    an H100 80GB HBM3 at 700 W gave a median of 25,944 pairs/s with it
+    against 17,613 with host EM (PERF.md), and the host EM on the CPU."""
+    if device_em is None:
+        return device.type == "cuda"
+    return bool(device_em)
+
+
 def orient_device(codes: torch.Tensor, lens: torch.Tensor):
     """[R, L] forward codes -> [2R, L] forward + revcomp rows, on the
     tensors' device (ema_tpu/core/pipeline.py:74-89, _orient_device).
@@ -108,26 +159,31 @@ class Aligner:
     """Holds the index state on ``device`` and runs batched alignment."""
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
-                 device, sw_impl: Optional[str] = None):
+                 device, sw_impl: Optional[str] = None,
+                 seed_impl: Optional[str] = None):
         _tune_malloc()
         self.device = resolve_device(device)
         self.sw_impl = resolve_sw_impl(sw_impl)
+        self.seed_impl = resolve_seed_impl(seed_impl)
         self.index = index
         cfg = cfg or config.RunConfig()
-        if cfg.device_em:
-            raise ValueError("device EM is not ported yet: EM runs on the "
-                             "host (RunConfig(device_em=None or False))")
         seeding = cfg.aligner.seeding or "smem"
-        if seeding != "smem":
-            raise ValueError(f"seeding {seeding!r} is not ported: the port "
-                             "seeds with SMEM on the host")
+        if seeding not in SEEDINGS:
+            raise ValueError(f"unknown seeding {seeding!r} (one of "
+                             f"{', '.join(SEEDINGS)})")
         # batch size and in-flight chunks start at the JAX package's TPU
         # values (ema_tpu/core/pipeline.py:209-215); untuned on the GPU
         self.cfg = dataclasses.replace(
             cfg, batch_size=cfg.batch_size or 4096,
-            inflight_chunks=cfg.inflight_chunks or 4, device_em=False,
+            inflight_chunks=cfg.inflight_chunks or 4,
+            device_em=resolve_device_em(cfg.device_em, self.device),
             aligner=dataclasses.replace(cfg.aligner, seeding=seeding))
-        self.text_dev = to_device_state(index, self.device)
+        self.text_dev, self.fma = to_device_state(
+            index, self.device, fm=self.seed_impl == "device")
+        # the EM's side stream (core/em.dispatch_em_batch)
+        self._em_stream = (torch.cuda.Stream(self.device)
+                           if self.cfg.device_em and self.device.type == "cuda"
+                           else None)
         self._cloud_id = 0
         self._id_lock = threading.Lock()   # MI ids under concurrent chunks
         self._contig_blob = None
@@ -184,44 +240,85 @@ class Aligner:
         rc = np.where(valid, rc_vals, np.uint8(4))
         oriented = np.concatenate([codes, rc], axis=0)
         olens = np.concatenate([lens, lens])
-        # the SW scorer's copy: forward rows uploaded once, revcomp derived
-        # on the device; row r of the device copy is oriented read r
-        oriented_dev, olens_dev = orient_device(
-            torch.from_numpy(codes).to(self.device),
-            torch.from_numpy(np.ascontiguousarray(lens, np.int32))
-            .to(self.device))
+        # forward rows uploaded once: device seeding reads them, and the SW
+        # scorer's revcomp rows are derived from them on the device; row r
+        # of the oriented copy is oriented read r
+        codes_dev = torch.from_numpy(codes).to(self.device)
+        lens_dev = torch.from_numpy(
+            np.ascontiguousarray(lens, np.int32)).to(self.device)
+        oriented_dev, olens_dev = orient_device(codes_dev, lens_dev)
 
-        # --- seed: full SMEM enumeration + re-seeding in threaded host
-        # C++ (bwt_smem1 semantics).  Both strands live in the FM text,
-        # so only the forward read is seeded.
-        with self._mst("seed[smem,host]", n_reads):
-            sm = native.smem_seed_batch(
-                idx.occ_blocks, idx.counts, idx.primary, idx.fm_n,
-                codes, lens,
-                min_seed_len=params.min_seed_len,
-                split_len=int(params.min_seed_len * 1.5 + 0.499),
-                split_width=params.split_width,
-                max_mem_intv=params.max_mem_intv,
-                kmer_tab=self._smem_kmer_tab())
-            seed_stack = sm[:4]
-            nsd = sm[4]
+        # --- seed (ema_tpu/core/pipeline.py:441-531).  Both strands live
+        # in the FM text, so only the forward read is seeded.
+        seed_stack = nsd = hp = None
+        if params.seeding == "smem":
+            # full SMEM enumeration + re-seeding in threaded host C++
+            # (bwt_smem1 semantics)
+            with self._mst("seed[smem,host]", n_reads):
+                sm = native.smem_seed_batch(
+                    idx.occ_blocks, idx.counts, idx.primary, idx.fm_n,
+                    codes, lens,
+                    min_seed_len=params.min_seed_len,
+                    split_len=int(params.min_seed_len * 1.5 + 0.499),
+                    split_width=params.split_width,
+                    max_mem_intv=params.max_mem_intv,
+                    kmer_tab=self._smem_kmer_tab())
+                seed_stack = sm[:4]
+                nsd = sm[4]
+        elif self.seed_impl == "native":
+            # greedy chop in host C++ (value-identical to fm.seed_reads)
+            with self._mst("seed[native,host]", n_reads):
+                sm = native.greedy_seed_batch(
+                    idx.occ_blocks, idx.counts, idx.primary, idx.fm_n,
+                    codes, lens, min_seed_len=params.seed_len,
+                    max_seeds=MAX_SEEDS)
+                seed_stack = sm[:4]
+                nsd = sm[4]
+        else:
+            # greedy chop, hit compaction and locate in one device call
+            budget = 4 * n_reads
+            with self._mst("seed+locate[device]", n_reads):
+                packed, total, frd = fm.seed_locate_reads(
+                    self.fma, codes_dev, lens_dev, max_seeds=MAX_SEEDS,
+                    min_seed_len=params.seed_len,
+                    max_hits=params.max_hits_per_seed, budget=budget,
+                    max_occ=params.max_occ)
+                total = int(total)
+                if total <= budget:
+                    owner, qb, slen, hp = packed[:, :total].to(
+                        torch.int64).cpu().numpy()
+                    frac_rep_read = frd.cpu().numpy()
+            if hp is None:
+                # more hits than the budget (a deep-repeat chunk): the
+                # unbounded two-step path, still on the device
+                with self._mst("seed[device]", n_reads):
+                    sd = fm.seed_reads(self.fma, codes_dev, lens_dev,
+                                       max_seeds=MAX_SEEDS,
+                                       min_seed_len=params.seed_len)
+                    seed_stack = tuple(a.cpu().numpy() for a in sd[:4])
+                    nsd = sd[4].cpu().numpy()
 
-        # repeat fraction per physical read: fraction of read bases
-        # covered by seeds whose SA interval exceeds max_occ (BWA's
-        # l_rep/frac_rep, consumed by the mapq formula).  SMEMs may
-        # overlap, so the sum over-counts — clip to 1.
-        n_s = seed_stack[0].shape[1]
-        s_live = np.arange(n_s)[None, :] < nsd[:, None]
-        s_width = np.where(s_live, seed_stack[1] - seed_stack[0], 0)
-        l_rep = np.where(s_width > params.max_occ,
-                         seed_stack[3], 0).sum(axis=1)
-        frac_rep_read = np.minimum(
-            l_rep / np.maximum(lens, 1), 1.0).astype(np.float32)
+        if hp is None:
+            # repeat fraction per physical read: fraction of read bases
+            # covered by seeds whose SA interval exceeds max_occ (BWA's
+            # l_rep/frac_rep, consumed by the mapq formula).  SMEMs may
+            # overlap, so the sum over-counts — clip to 1.
+            n_s = seed_stack[0].shape[1]
+            s_live = np.arange(n_s)[None, :] < nsd[:, None]
+            s_width = np.where(s_live, seed_stack[1] - seed_stack[0], 0)
+            l_rep = np.where(s_width > params.max_occ,
+                             seed_stack[3], 0).sum(axis=1)
+            frac_rep_read = np.minimum(
+                l_rep / np.maximum(lens, 1), 1.0).astype(np.float32)
 
-        owner, qb, slen, rows_flat = _compact_seed_hits(
-            seed_stack, nsd, params.max_hits_per_seed)
-        with self._mst("locate[native,host]", rows_flat.shape[0]):
-            hp = native.locate_batch(idx, rows_flat)
+            owner, qb, slen, rows_flat = _compact_seed_hits(
+                seed_stack, nsd, params.max_hits_per_seed)
+            if self.seed_impl == "native":
+                with self._mst("locate[native,host]", rows_flat.shape[0]):
+                    hp = native.locate_batch(idx, rows_flat)
+            else:
+                with self._mst("locate[device]", rows_flat.shape[0]):
+                    hp = locate_rows(self.fma, rows_flat)
 
         # map both-strands hits to (oriented read, forward-text pos):
         # a hit at fm pos p >= n is the reverse strand — the REVCOMP of the
@@ -588,14 +685,15 @@ class Aligner:
 
     def iter_batch_sam(self, batch: ReadBatch) -> Iterator[List[str]]:
         """Full pipeline for one ReadBatch whose barcodes are complete
-        (ema_tpu/core/pipeline.py:948-1142, host EM only).
+        (ema_tpu/core/pipeline.py:948-1142).
 
         Candidate generation runs in cfg.batch_size-pair chunks with
         cfg.inflight_chunks in flight on a thread pool; barcode groups
         are processed as soon as all their chunks have landed, so the
-        host EM/selection/SAM phase of early barcodes overlaps later
-        chunks' seeding and device time.  Yields lists of SAM lines as
-        groups complete.
+        EM/selection/SAM phase of early barcodes overlaps later chunks'
+        seeding and device time, and a batch's device EM overlaps the
+        previous batch's selection and emission.  Yields lists of SAM
+        lines as groups complete.
         """
         P = len(batch.ids)
         B = max(self.cfg.batch_size, 1)
@@ -649,9 +747,11 @@ class Aligner:
             pool[pool_len:need] = part
             pool_len = need
 
-        def sweep_and_em(recs, idents, up_to_bc):
-            """Sweep complete barcode groups (bc < up_to_bc) and run their
-            batched host EM; returns (end, states)."""
+        def sweep_and_dispatch(recs, idents, up_to_bc):
+            """Sweep complete barcode groups (bc < up_to_bc) and launch
+            their batched EM; returns (end, (states, wait)).  On the
+            device the EM runs while ``finish_and_emit`` handles the
+            previous batch (ema_tpu/core/pipeline.py:1030-1069)."""
             bcs = recs["bc"]
             if up_to_bc is None:
                 end = recs.shape[0]
@@ -668,12 +768,23 @@ class Aligner:
                     n_pairs_list=n_pairs_list)
             else:
                 states = []
-            with self._mst("em[host]", len(states)):
-                # one padded numpy pass for all EM-gated groups
-                groups_mod.run_em_host_batch(states)
-            return end, states
+            em_wait = None
+            with self._mst("em[device]" if self.cfg.device_em
+                           else "em[host]", len(states)):
+                if self.cfg.device_em:
+                    # one padded device call for all EM-gated groups
+                    em_wait = dispatch_em_batch(states, self.device,
+                                                self._em_stream)
+                else:
+                    # one padded numpy pass for all EM-gated groups
+                    groups_mod.run_em_host_batch(states)
+            return end, (states, em_wait)
 
-        def finish_and_emit(states) -> None:
+        def finish_and_emit(emit_state) -> None:
+            states, em_wait = emit_state
+            if em_wait is not None:
+                with self._mst("em[device]"):
+                    em_wait()
             finished = []
             with self._mst("select+emit[host]",
                            sum(st.n for st in states)):
@@ -701,7 +812,7 @@ class Aligner:
                 futs.append(ex.submit(work, chunk_starts[next_submit]))
                 next_submit += 1
             k = 0
-            pending = None          # one swept batch awaiting emission
+            pending = None          # one emit batch with its EM in flight
             while futs:
                 recs, idents, part_pool = futs.popleft().result()
                 if next_submit < len(chunk_starts):
@@ -713,12 +824,13 @@ class Aligner:
                 pend_ids = np.concatenate([pend_ids, idents])
                 last = k + 1 >= len(chunk_starts)
                 limit = None if last else int(batch.bc[chunk_starts[k + 1]])
-                done, states = sweep_and_em(pend_recs, pend_ids, limit)
+                done, bstate = sweep_and_dispatch(pend_recs, pend_ids,
+                                                  limit)
                 pend_recs = pend_recs[done:]
                 pend_ids = pend_ids[done:]
                 if pending is not None:
                     finish_and_emit(pending)
-                pending = states
+                pending = bstate
                 k += 1
                 if lines:
                     yield lines
@@ -968,6 +1080,20 @@ def _compact_seed_hits(seed_stack, n_seeds: np.ndarray, max_hits: int):
     return (b_idx[rep].astype(np.int64),
             s_qb[b_idx, s_idx].astype(np.int64)[rep],
             s_len[b_idx, s_idx].astype(np.int64)[rep], rows)
+
+
+def locate_rows(fma, rows: np.ndarray) -> np.ndarray:
+    """Device locate over a flat row list (ema_tpu/core/pipeline.py:
+    1468-1495), in LOCATE_CHUNK windows that bound the device memory of
+    one call (torch compiles nothing, so no shape buckets).  int64 out."""
+    H = rows.shape[0]
+    out = np.empty(H, np.int64)
+    dev = fma.occ_blocks.device
+    for s in range(0, H, LOCATE_CHUNK):
+        r = torch.from_numpy(
+            np.ascontiguousarray(rows[s:s + LOCATE_CHUNK], np.int64))
+        out[s:s + r.shape[0]] = fm.locate(fma, r.to(dev)).cpu().numpy()
+    return out
 
 
 def _reorder_batch(batch: ReadBatch, order: np.ndarray) -> ReadBatch:

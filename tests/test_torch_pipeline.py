@@ -1,8 +1,10 @@
 """The port's align path (ema_tpu_torch) against the JAX package, on CPU.
 
 On the CPU the port scores with the plain PyTorch SW and runs EM on the
-host; its SAM must still be byte-identical to the JAX package's.  The
-same paths run on the card in chip_smoke.py.
+host by default; with ``device_em=True`` it runs the torch EM, and with
+``seed_impl="device"`` the torch FM ops, on the CPU.  Its SAM must be
+byte-identical to the JAX package's under each.  The same paths run on
+the card in chip_smoke.py.
 """
 
 import os
@@ -19,7 +21,8 @@ from ema_tpu import config
 from ema_tpu.core import pipeline as jax_pipeline
 from ema_tpu.index import build_index
 from ema_tpu_torch.core.batch import ReadBatch
-from ema_tpu_torch.core.pipeline import Aligner, orient_device
+from ema_tpu_torch.core.pipeline import (Aligner, orient_device,
+                                         resolve_device_em, resolve_seed_impl)
 from ema_tpu_torch.index.device import to_device_state
 from simulate import rand_genome, simulate_pairs, to_str
 
@@ -52,9 +55,17 @@ def test_device_state_preserves_text():
     rng = np.random.default_rng(3)
     idx = build_index({"a": rand_genome(rng, 5000),
                        "b": rand_genome(rng, 700)})
-    text = to_device_state(idx, torch.device("cpu"))
-    assert text.dtype == torch.uint8
-    np.testing.assert_array_equal(text.numpy(), idx.text)
+    state = to_device_state(idx, torch.device("cpu"))
+    assert state.text.dtype == torch.uint8 and state.fm is None
+    np.testing.assert_array_equal(state.text.numpy(), idx.text)
+    fma = to_device_state(idx, torch.device("cpu"), fm=True).fm
+    for name in ("occ_blocks", "counts", "sa_mark_rank", "sa_values"):
+        np.testing.assert_array_equal(getattr(fma, name).numpy(),
+                                      getattr(idx, name))
+    np.testing.assert_array_equal(
+        fma.sa_mark_words.numpy().view(np.uint32), idx.sa_mark_words)
+    assert (fma.primary, fma.sa_rate, fma.n) == (idx.primary, idx.sa_rate,
+                                                 idx.fm_n)
 
 
 def test_golden_sam_cpu():
@@ -80,11 +91,10 @@ def test_golden_sam_cpu_every_scorer(sw_impl):
                     "scan": {"scan"}, "native": set()}[sw_impl]
 
 
-def test_sam_equals_jax_on_repeat_world():
+@pytest.fixture(scope="module")
+def repeat_world():
     """The repeat world of tests/test_pipeline.py:129 (2 Mbp, three
-    repeat families, 80 barcodes): both packages must emit the same SAM
-    lines (the JAX package with its native SW and jitted EM, the port
-    with the plain PyTorch SW and host EM)."""
+    repeat families, 80 barcodes): (index, pairs)."""
     rng = np.random.default_rng(41)
     G = 2_000_000
     genome = rand_genome(rng, G)
@@ -101,12 +111,127 @@ def test_sam_equals_jax_on_repeat_world():
         pairs_per_frag=(15, 25), frag_len=30_000, read_len=100,
         err=0.003)
     ids, _, bcs, s1, q1, s2, q2, _ = pairs
-    want = jax_pipeline.Aligner(idx).align_batch_to_sam(
-        jax_pipeline.ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2))
+    return idx, (ids, bcs, s1, q1, s2, q2)
+
+
+def _jax_sam(idx, pairs, cfg=None, seed_impl="native", monkeypatch=None):
+    """The JAX package's SAM lines; greedy seeding runs its device
+    program (on the CPU) with seed_impl="device"."""
+    if monkeypatch is not None:
+        monkeypatch.setenv("EMA_TPU_SEED_IMPL", seed_impl)
+    al = jax_pipeline.Aligner(idx, cfg)
+    assert al._host_fm == (seed_impl == "native")
+    return al.align_batch_to_sam(jax_pipeline.ReadBatch.from_pairs(*pairs))
+
+
+@pytest.fixture(scope="module")
+def jax_repeat_sam(repeat_world):
+    return jax_pipeline.Aligner(repeat_world[0]).align_batch_to_sam(
+        jax_pipeline.ReadBatch.from_pairs(*repeat_world[1]))
+
+
+@pytest.fixture(scope="module")
+def jax_repeat_sam_device_locate(repeat_world):
+    """The JAX package's SAM with its device locate (on the CPU)."""
+    with pytest.MonkeyPatch.context() as mp:
+        return _jax_sam(*repeat_world, None, "device", mp)
+
+
+def test_sam_equals_jax_on_repeat_world(repeat_world, jax_repeat_sam):
+    """Both packages must emit the same SAM lines on the repeat world
+    (the JAX package with its native SW and jitted EM, the port with the
+    plain PyTorch SW and host EM)."""
+    idx, pairs = repeat_world
     got = Aligner(idx, device="cpu").align_batch_to_sam(
-        ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2))
-    assert len(got) >= 2 * len(ids)
-    assert got == want
+        ReadBatch.from_pairs(*pairs))
+    assert len(got) >= 2 * len(pairs[0])
+    assert got == jax_repeat_sam
+
+
+@pytest.fixture
+def counted(monkeypatch):
+    """Counts of the port's device EM and device FM calls."""
+    from ema_tpu_torch.core import pipeline as tp
+    from ema_tpu_torch.index import fm
+
+    n = {"em": 0, "locate": 0, "seed+locate": 0}
+
+    def wrap(mod, name, key):
+        f = getattr(mod, name)
+
+        def counting(*a, **kw):
+            n[key] += 1
+            return f(*a, **kw)
+        monkeypatch.setattr(mod, name, counting)
+    wrap(tp, "dispatch_em_batch", "em")
+    wrap(tp, "locate_rows", "locate")
+    wrap(fm, "seed_locate_reads", "seed+locate")
+    return n
+
+
+# (Aligner keywords, RunConfig keywords, the device calls they make)
+DEVICE_PATHS = {
+    "device_em": ({}, dict(device_em=True), ("em",)),
+    "seed_device": (dict(seed_impl="device"), {}, ("locate",)),
+    "all_device": (dict(seed_impl="device"), dict(device_em=True),
+                   ("em", "locate")),
+}
+
+
+@pytest.mark.parametrize("path", list(DEVICE_PATHS))
+def test_golden_sam_cpu_device_paths(path, counted):
+    """Device EM and device locate (smem seeding) on the CPU give
+    tests/golden/expected.sam byte for byte."""
+    al_kw, cfg_kw, calls = DEVICE_PATHS[path]
+    with open(GOLDEN) as f:
+        want = f.read()
+    assert golden_sam(torch.device("cpu"), **al_kw, **cfg_kw) == want
+    assert all(counted[c] > 0 for c in calls), counted
+
+
+@pytest.mark.parametrize("path", list(DEVICE_PATHS))
+def test_repeat_world_device_paths_equal_jax(path, repeat_world,
+                                             jax_repeat_sam,
+                                             jax_repeat_sam_device_locate,
+                                             counted):
+    """The port's device EM and device locate give the JAX package's SAM
+    (its jitted EM, and its device locate where the port locates on the
+    device)."""
+    al_kw, cfg_kw, calls = DEVICE_PATHS[path]
+    idx, pairs = repeat_world
+    got = Aligner(idx, config.RunConfig(**cfg_kw), device="cpu",
+                  **al_kw).align_batch_to_sam(ReadBatch.from_pairs(*pairs))
+    assert got == (jax_repeat_sam_device_locate if "locate" in calls
+                   else jax_repeat_sam)
+    assert all(counted[c] > 0 for c in calls), counted
+
+
+@pytest.mark.parametrize("seed_impl", ["native", "device"])
+def test_greedy_seeding_equals_jax(seed_impl, repeat_world, monkeypatch,
+                                   counted):
+    """Greedy seeding on the host (native) and on the device (the fused
+    seed+locate call) gives the JAX package's greedy SAM, whose seeding
+    runs its device program, on the golden and the repeat worlds."""
+    from chip_smoke import golden_world
+    from ema_tpu.core.samout import write_sam_header
+
+    greedy = config.AlignerParams(seeding="greedy")
+    contigs, _, gpairs = golden_world()
+    gidx = build_index(contigs)
+    cfg = config.RunConfig(batch_size=512, seed=7, aligner=greedy)
+    header = write_sam_header(gidx.names, gidx.lengths, cfg.read_group,
+                              "golden", "golden")
+    want = _jax_sam(gidx, gpairs, cfg, "device", monkeypatch)
+    got = golden_sam(torch.device("cpu"), seeding="greedy",
+                     seed_impl=seed_impl)
+    assert got == header + "".join(want)
+    idx, pairs = repeat_world
+    cfg = config.RunConfig(aligner=greedy)
+    want = _jax_sam(idx, pairs, cfg, "device", monkeypatch)
+    got = Aligner(idx, cfg, device="cpu", seed_impl=seed_impl,
+                  ).align_batch_to_sam(ReadBatch.from_pairs(*pairs))
+    assert len(got) >= 2 * len(pairs[0]) and got == want
+    assert (counted["seed+locate"] > 0) == (seed_impl == "device")
 
 
 def test_long_reads_equal_jax():
@@ -142,20 +267,45 @@ def test_scalar_emission_path_equals_jax():
 
 
 def test_aligner_refuses_what_is_not_ported():
+    """What the port still refuses: an unknown seed_impl or seeding, and
+    a CUDA device without a card."""
     idx = build_index({"a": rand_genome(np.random.default_rng(4), 2000)})
-    with pytest.raises(ValueError, match="device EM"):
-        Aligner(idx, config.RunConfig(device_em=True), device="cpu")
-    greedy = config.RunConfig(aligner=config.AlignerParams(seeding="greedy"))
-    with pytest.raises(ValueError, match="greedy"):
-        Aligner(idx, greedy, device="cpu")
+    with pytest.raises(ValueError, match="seed_impl"):
+        Aligner(idx, device="cpu", seed_impl="tpu")
+    bad = config.RunConfig(aligner=config.AlignerParams(seeding="mem"))
+    with pytest.raises(ValueError, match="seeding"):
+        Aligner(idx, bad, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             Aligner(idx, device="cuda")
 
 
+@pytest.mark.parametrize("env,arg,want", [
+    (None, None, "native"), ("device", None, "device"),
+    ("native", None, "native"), ("tpu", None, "native"),
+    ("device", "native", "native"), (None, "device", "device")])
+def test_resolve_seed_impl(env, arg, want, monkeypatch):
+    """Native unless EMA_TPU_SEED_IMPL or the argument asks for the
+    device; the argument overrides the environment."""
+    if env is None:
+        monkeypatch.delenv("EMA_TPU_SEED_IMPL", raising=False)
+    else:
+        monkeypatch.setenv("EMA_TPU_SEED_IMPL", env)
+    assert resolve_seed_impl(arg) == want
+
+
+@pytest.mark.parametrize("device_em,dev,want", [
+    (None, "cuda", True), (None, "cpu", False),
+    (True, "cpu", True), (False, "cuda", False)])
+def test_resolve_device_em(device_em, dev, want):
+    """None is device EM on a card and host EM on the CPU."""
+    assert resolve_device_em(device_em, torch.device(dev)) is want
+
+
 _NO_JAX_SCRIPT = r"""
 import os, sys
 import numpy as np
+from ema_tpu import config
 from ema_tpu.index.build import build_index
 from ema_tpu_torch.core.batch import ReadBatch
 from ema_tpu_torch.core.pipeline import Aligner
@@ -178,6 +328,16 @@ assert scan.sw_impl == "scan"
 assert scan.align_batch_to_sam(
     ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)) == lines
 del os.environ["EMA_TPU_SW_IMPL"]
+dev = Aligner(idx, config.RunConfig(device_em=True), device="cpu",
+              seed_impl="device")
+assert dev.cfg.device_em and dev.fma is not None
+assert dev.align_batch_to_sam(
+    ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)) == lines
+greedy = Aligner(idx, config.RunConfig(
+    aligner=config.AlignerParams(seeding="greedy")), device="cpu",
+    seed_impl="device").align_batch_to_sam(
+    ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2))
+assert greedy, "no greedy SAM lines"
 ref = os.path.join(tmp, "ref.fa")
 with open(ref, "w") as f:
     f.write(">c\n" + gs + "\n")
@@ -192,6 +352,12 @@ assert main(["align", "-r", ref, "-s", bucket, "-o", out,
 with open(out) as f:
     recs = [ln for ln in f if not ln.startswith("@")]
 assert sorted(recs) == sorted(lines), "CLI and library SAM differ"
+os.environ["EMA_TPU_SEED_IMPL"] = "device"
+assert main(["align", "-r", ref, "-s", bucket, "-o", out, "--device", "cpu",
+             "--device-em", "--seeding", "greedy"]) == 0
+with open(out) as f:
+    recs = [ln for ln in f if not ln.startswith("@")]
+assert sorted(recs) == sorted(greedy), "CLI and library greedy SAM differ"
 assert "jax" not in sys.modules, "jax was imported"
 print("NO_JAX_OK", len(recs))
 """
