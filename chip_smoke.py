@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout, needs one CUDA card and builds the four
-SW kernels from the sources in the checkout (one nvcc per source, all
-started together, sm_90a).  Phases, in order; any failure raises and the
-run exits non-zero:
+Runs from the root of a checkout, needs one CUDA card and builds the five
+kernels (four SW kernels and the int32 ALU probe) from the sources in the
+checkout (one nvcc per source, all started together, sm_90a).  Phases,
+in order; any failure raises and the run exits non-zero:
 
   1. setup: torch/CUDA versions, the card, the kernel build time and what
      ptxas says of each kernel (registers, spills);
@@ -46,7 +46,26 @@ run exits non-zero:
      1024 lanes) aligned on the card must give the CPU path's SAM;
   8. CLI: ``python -m ema_tpu_torch.cli align`` on a small input must
      give the library path's SAM records;
-  9. checks: synchronise, and no jax was imported.
+  9. bench tool: ema_tpu_torch.tools.bench_sw in this process at its full
+     shape (B = 16,384, m = 100, n = 192, W = 128): Gcell/s of each SW
+     kernel and plain version, every variant bit-exact, packed against
+     its wl-masked plain version; the probe, both forms, bit-exact
+     against alu_probe_ref on the TPU's [8, 128] input and on a
+     card-filling grid, timed at the TPU tool's K, against the card's
+     theoretical int32 rate, and the banded kernel's roofline share;
+ 10. -x: the bench world written as an interleaved FASTQ and a
+     whitelist, then ``count``, ``preproc -n 500 -t 4`` and ``align -x``
+     over the 500 buckets: coalesced, ``--no-coalesce -j 1`` and ``-j 2``
+     byte-identical, a ``--manifest`` rerun that touches no part, two
+     ``--sort --shard`` runs merged equal to the single sorted run (MI
+     masked), samdiff against the library path with 0 records differing,
+     >= 98% within +-5 bp, pairs/s of each and of the library path;
+ 11. sharded: a 3 Mbp genome of 4 contigs in 2 index shards; the
+     ShardedAligner equals the single-index Aligner (MI masked) under
+     device and host EM, with pairs/s of both, and ``index --shard-bases``
+     then ``align -s`` and ``align -x`` through the CLI give the library
+     path's records;
+ 12. checks: synchronise, and no jax was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before it the per-kernel JSON record; the last line
@@ -74,6 +93,8 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "expected.sam")
 SW_KW = dict(match=1, mismatch=4, gap_open=6, gap_extend=1, clip=5)
 # kernel -> (gather_score scorer, source, the TPU kernel it replaces)
 KERNELS = {
+    "alu_probe": (None, "ema_tpu_torch/ops/csrc/alu_probe.cu",
+                  "tools/bench_sw.py:193"),
     "sw_banded": ("banded", "ema_tpu_torch/ops/csrc/sw_banded.cu",
                   "ema_tpu/ops/sw_pallas.py:260"),
     "sw_banded16": ("banded16", "ema_tpu_torch/ops/csrc/sw_banded16.cu",
@@ -174,16 +195,17 @@ def golden_sam(device, sw_impl=None, *, device_em=None, seed_impl=None,
 
 def bench_world():
     """The world of bench.py:132-145 (seed 2026, 3 Mbp, N_PAIRS 50,000
-    requested, 100 bp reads, err 0.003, ~60 pairs per barcode)."""
+    requested, 100 bp reads, err 0.003, ~60 pairs per barcode): returns
+    (genome, pairs, truth, barcode strings)."""
     sim = simulate()
     rng = np.random.default_rng(2026)
     genome = sim.rand_genome(rng, 3_000_000)
     genome_str = sim.to_str(genome)
     n_bc = max(50_000 // 60, 1)
-    ids, _, bcs, s1, q1, s2, q2, truth = sim.simulate_pairs(
+    ids, bc_strs, bcs, s1, q1, s2, q2, truth = sim.simulate_pairs(
         rng, genome_str, n_barcodes=n_bc, frags_per_bc=(2, 4),
         pairs_per_frag=(15, 25), frag_len=30_000, read_len=100, err=0.003)
-    return genome, (ids, bcs, s1, q1, s2, q2), truth
+    return genome, (ids, bcs, s1, q1, s2, q2), truth, bc_strs
 
 
 def truth_share(lines, ids, truth) -> tuple:
@@ -359,6 +381,8 @@ def phase_kernel(dev, card: str) -> dict:
     cases = sw_cases(dev)
     stats = {}
     for name, (scorer, _, _) in KERNELS.items():
+        if scorer is None:
+            continue                   # the probe: phase_bench_sw
         max_err = 0
         for cname in KERNEL_CASES[name] or cases:
             c = cases[cname]
@@ -1045,6 +1069,350 @@ def phase_cli(dev) -> None:
           "CLI SAM records differ from the library path")
 
 
+# ----------------------------------------------------------------------
+# phases 9-11: the bench tool, -x over preproc buckets, sharded indexes
+# ----------------------------------------------------------------------
+
+def phase_bench_sw(dev, card: str) -> dict:
+    """The probe on the TPU's [8, 128] input against its plain version,
+    then every step of ema_tpu_torch.tools.bench_sw at its full shape.
+    Returns the probe's record for the kernels line: its launches in the
+    bench tool's run, and its K_CHECK times beside the plain version's."""
+    from ema_tpu_torch.ops import probe
+    from ema_tpu_torch.tools import bench_sw
+
+    x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
+    want = probe.alu_probe_ref(x, bench_sw.K_CHECK, probe.UNROLL_TPU)
+    err = 0
+    for form in probe.FORMS:
+        got = probe.alu_probe(x, bench_sw.K_CHECK, probe.UNROLL_TPU, form)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"alu_probe ({form}) differs from "
+                                      f"alu_probe_ref on [8, 128]")
+    log(f"alu_probe vs plain [8, 128], K={bench_sw.K_CHECK} x "
+        f"{probe.UNROLL_TPU}, both forms: max_abs_err={err}")
+    probe.LAUNCHES.reset()
+    art = bench_sw.run(dev)
+    launches = probe.LAUNCHES.value
+    for name, v in art["variants"].items():
+        log(f"bench_sw [{name}]: {v['ms']} ms, {v['gcells_per_s']} Gcell/s"
+            f" (B={art['shape']['B']}), card: {card}")
+    log(f"bench_sw: probe {art['vpu_int32_tops_measured']} Tops/s (alu), "
+        f"{art['dpx_int32_tops_measured']} Tops/s (dpx), theoretical "
+        f"{art['int32_tops_theoretical']} Tops/s; sw_banded "
+        f"{art['banded_int32_tops_achieved']} Tops/s = "
+        f"{art['banded_roofline_pct']}% of the probe, "
+        f"{art['banded_roofline_pct_of_theoretical']}% of theoretical; "
+        f"bit_exact_across_variants={art['bit_exact_across_variants']}, "
+        f"packed vs wl-masked plain="
+        f"{art['packed_bit_exact_vs_wl_masked_ref']}; probe launches "
+        f"{launches}; card: {card}")
+    log("bench_sw artifact: " + json.dumps(art))
+    check(art["bit_exact_across_variants"]
+          and art["packed_bit_exact_vs_wl_masked_ref"],
+          "bench_sw variants disagree")
+    check(launches > 0, "the bench tool never launched alu_probe")
+    return dict(launches=launches,
+                max_abs_err=max(err, art["alu_max_abs_err"],
+                                art["dpx_max_abs_err"]),
+                ms=art["alu_k_check_ms"], plain_ms=art["alu_probe_plain_ms"])
+
+
+def _write_fasta(path, contigs) -> None:
+    to_str = simulate().to_str
+    with open(path, "w") as f:
+        for name, codes in contigs.items():
+            s = to_str(codes)
+            f.write(f">{name}\n")
+            f.writelines(s[i:i + 80] + "\n" for i in range(0, len(s), 80))
+
+
+def _body(path) -> list:
+    with open(path) as f:
+        return [ln for ln in f if not ln.startswith("@")]
+
+
+def _norm(lines) -> list:
+    """SAM records with MI masked, sorted (tests/test_sharded_index.py:
+    27-28): MI numbering follows the visit order."""
+    return sorted(re.sub(r"\tMI:i:\d+", "\tMI:i:*", ln) for ln in lines)
+
+
+def _cli(*args, stdin=None) -> str:
+    """``python -m ema_tpu_torch.cli`` in a subprocess; its stderr."""
+    r = subprocess.run([sys.executable, "-m", "ema_tpu_torch.cli", *args],
+                       cwd=ROOT, stdin=stdin, capture_output=True,
+                       text=True, timeout=900)
+    check(r.returncode == 0, f"CLI {args[0]} failed:\n{r.stderr[-4000:]}")
+    return r.stderr
+
+
+def _cli_in_process(dev, args) -> tuple:
+    """The CLI's main() in this process (so that the launch counts are
+    visible): (seconds until it returns and ``dev`` is idle, sw_banded
+    launches)."""
+    from ema_tpu_torch import cli
+    from ema_tpu_torch.ops.sw import reset_counts
+
+    reset_counts()
+    t0 = time.time()
+    rc = cli.main(args)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.time() - t0
+    check(rc == 0, f"CLI {' '.join(args[:3])} returned {rc}")
+    return dt, _launched()["sw_banded"]
+
+
+def phase_x(dev, card: str, genome, pairs, truth, bc_strs) -> dict:
+    """The documented workflow on the bench world: count, preproc -n 500
+    and align -x over the buckets, each mode against the others and
+    against the library path."""
+    from ema_tpu import config
+    from ema_tpu.cli import _load_or_build_index
+    from ema_tpu.core.samout import write_sam_header
+    from ema_tpu.utils.samdiff import diff_sams
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.io import read_special_rows
+    from ema_tpu_torch.parallel.distrib import merge_sorted_shards
+
+    ids, _, s1, q1, s2, q2 = pairs
+    rates, launches = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.fa")
+        _write_fasta(ref, {"chr1": genome})
+        wl = os.path.join(tmp, "wl.txt")
+        with open(wl, "w") as f:
+            f.writelines(b + "\n" for b in sorted(set(bc_strs)))
+        fq = os.path.join(tmp, "inter.fq")
+        with open(fq, "w") as f:
+            for i in range(len(ids)):
+                r1 = bc_strs[i] + "ACGTACG" + s1[i]
+                f.write(f"@{ids[i]}\n{r1}\n+\n{'I' * 23}{q1[i]}\n"
+                        f"@{ids[i]}\n{s2[i]}\n+\n{q2[i]}\n")
+        t0 = time.time()
+        with open(fq, "rb") as fh:
+            _cli("count", "-w", wl, "-o", os.path.join(tmp, "cnt"),
+                 stdin=fh)
+        with open(fq, "rb") as fh:
+            _cli("preproc", "-w", wl, "-o", os.path.join(tmp, "bkt"), "-n",
+                 "500", "-t", "4", os.path.join(tmp, "cnt.ema-ncnt"),
+                 stdin=fh)
+        bdir = os.path.join(tmp, "bkt")
+        buckets = sorted(os.path.join(bdir, b) for b in os.listdir(bdir)
+                         if b.startswith("ema-bin-"))
+        rows = [read_special_rows(b) for b in buckets]
+        n_pairs = sum(len(r[0]) for r in rows)
+        log(f"-x: count + preproc -n 500 -t 4 in {time.time() - t0} s: "
+            f"{len(buckets)} buckets, {n_pairs} pairs")
+        check(len(buckets) == 500 and n_pairs == len(ids),
+              f"preproc gave {len(buckets)} buckets of {n_pairs} pairs")
+
+        def out(name):
+            return os.path.join(tmp, f"{name}.sam")
+
+        def align(*flags, o):
+            return ["align", "-r", ref, "--device", str(dev), "-x", "-o",
+                    out(o), *flags, *buckets]
+
+        man = os.path.join(tmp, "run.jsonl")
+        # the module entry point, which also builds the index cache
+        t0 = time.time()
+        _cli(*align("--manifest", man, o="coal_man"))
+        log(f"-x: python -m ema_tpu_torch.cli align -x --manifest (index "
+            f"build included) in {time.time() - t0} s")
+        first = open(out("coal_man")).read()
+        parts = os.path.join(tmp, "coal_man.sam.parts")
+        mtimes = {p: os.path.getmtime(os.path.join(parts, p))
+                  for p in os.listdir(parts)}
+        check(len(mtimes) == 500, f"{len(mtimes)} parts written")
+        _cli_in_process(dev, align("--manifest", man, o="coal_man"))
+        same_mt = all(os.path.getmtime(os.path.join(parts, p)) == t
+                      for p, t in mtimes.items())
+        same = open(out("coal_man")).read() == first
+        log(f"-x --manifest rerun: parts untouched={same_mt}, output "
+            f"identical={same}")
+        check(same_mt and same, "the manifest rerun touched parts or "
+                                "changed the output")
+
+        bodies = {"coalesced+manifest": _body(out("coal_man"))}
+        for label, flags in (("coalesced", ()),
+                             ("-j 1", ("--no-coalesce", "-j", "1")),
+                             ("-j 2", ("--no-coalesce", "-j", "2"))):
+            dt, n = _cli_in_process(
+                dev, align(*flags, o=label.replace(" ", "")))
+            rates[label] = n_pairs / dt
+            launches += n
+            bodies[label] = _body(out(label.replace(" ", "")))
+            log(f"-x [{label}]: {dt} s for {n_pairs} pairs = "
+                f"{rates[label]} pairs/s (index load included), sw_banded "
+                f"launches {n}, card: {card}")
+        ref_body = bodies["coalesced+manifest"]
+        for label, b in bodies.items():
+            log(f"-x [{label}]: {len(b)} records, identical to the "
+                f"coalesced manifest run={b == ref_body}")
+            check(b == ref_body, f"-x [{label}] body differs")
+
+        _cli_in_process(dev, align("--sort", o="sorted"))
+        shards = []
+        for s in range(2):
+            _, n = _cli_in_process(dev, align("--sort", "--shard", str(s),
+                                              "--nshards", "2",
+                                              o=f"shard{s}"))
+            launches += n
+            shards.append(out(f"shard{s}"))
+        idx = _load_or_build_index(ref)
+        merge_sorted_shards(shards, out("merged"), idx.names)
+        same = _norm(_body(out("merged"))) == _norm(_body(out("sorted")))
+        log(f"-x --sort --shard 0/1 of 2, merged: identical to the single "
+            f"sorted run (MI masked)={same}")
+        check(same, "merged shards differ from the single sorted run")
+
+        # the library path on the same pairs
+        batch = ReadBatch.from_pairs(*(sum((r[k] for r in rows), [])
+                                       for k in range(6)))
+        cfg = config.RunConfig()
+        aligner = Aligner(idx, cfg, device=dev)
+        t0 = time.time()
+        lib = aligner.align_batch_to_sam(batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        rates["library"] = n_pairs / (time.time() - t0)
+        with open(out("library"), "w") as f:
+            f.write(write_sam_header(idx.names, idx.lengths, cfg.read_group,
+                                     "library", "library"))
+            f.writelines(lib)
+        st = diff_sams(out("coal_man"), out("library"))
+        fields = (st.pos_match, st.flag_match, st.cigar_match,
+                  st.mapq_match, st.bx_match, st.xg_close,
+                  st.mi_consistent, st.mate_match, st.seq_match,
+                  st.xa_match)
+        n_diff = st.only_a + st.only_b + max(st.shared - f for f in fields)
+        _cli("samdiff", out("coal_man"), out("library"), "--fail-under",
+             "100")
+        log(f"-x vs library path: samdiff over {st.shared} primary "
+            f"records: {n_diff} differ (a={st.n_a}, b={st.n_b}, "
+            f"mismatches {st.mismatches[:3]}); library {rates['library']} "
+            f"pairs/s, card: {card}")
+        check(n_diff == 0, f"samdiff: {n_diff} records differ from the "
+                           f"library path")
+        ok, n = truth_share(ref_body, ids, truth)
+        log(f"-x accuracy: {ok}/{n} = {ok / max(n, 1)} mapped primary "
+            f"records within +-5 bp of truth")
+        check(n >= n_pairs and ok / n >= 0.98, f"-x accuracy gate ({ok}/{n})")
+    check(launches > 0, "the -x runs never launched sw_banded")
+    log(f"-x pairs/s: coalesced {rates['coalesced']}, -j 1 {rates['-j 1']}, "
+        f"-j 2 {rates['-j 2']}, library {rates['library']}; coalesced / "
+        f"-j 1 = {rates['coalesced'] / rates['-j 1']}; card: {card}")
+    return rates
+
+
+SHARD_BASES = 1_600_000     # two shards of the 4 x 750 kbp sharded world
+
+
+def sharded_world():
+    """A 3 Mbp genome of 4 random 750 kbp contigs and ~40k pairs simulated
+    as in bench_world, a quarter of the barcodes on each contig: no
+    fragment spans two contigs, as no molecule spans two chromosomes.
+    (A read across the boundary of two contigs in different shards is the
+    one place where a sharded and a single index differ, in the JAX
+    package as in the port: ROADMAP C.)  Returns (contigs, barcode
+    strings, pairs)."""
+    sim = simulate()
+    rng = np.random.default_rng(2027)
+    contigs = {f"chr{i + 1}": sim.rand_genome(rng, 750_000)
+               for i in range(4)}
+    cols = [[] for _ in range(7)]      # ids, bc_strs, bcs, s1, q1, s2, q2
+    for name, codes in contigs.items():
+        got = sim.simulate_pairs(
+            rng, sim.to_str(codes), n_barcodes=50_000 // 60 // 4,
+            frags_per_bc=(2, 4), pairs_per_frag=(15, 25), frag_len=30_000,
+            read_len=100, err=0.003)
+        cols[0] += [f"{name}_{i}" for i in got[0]]
+        for col, vals in zip(cols[1:], got[1:7]):
+            col += vals
+    ids, bc_strs, bcs, s1, q1, s2, q2 = cols
+    return contigs, bc_strs, (ids, bcs, s1, q1, s2, q2)
+
+
+def phase_sharded(dev, card: str) -> dict:
+    """Two index shards against one index, in the library and through the
+    CLI."""
+    from ema_tpu import config
+    from ema_tpu.index import build_index, build_index_sharded
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner, ShardedAligner
+    from ema_tpu_torch.io import read_special_fastq
+    from ema_tpu_torch.ops.sw import reset_counts
+
+    contigs, bc_strs, pairs = sharded_world()
+    n_pairs = len(pairs[0])
+    single = build_index(contigs)
+    sharded = build_index_sharded(contigs, max_shard_bases=SHARD_BASES)
+    check(sharded.n_shards == 2, f"{sharded.n_shards} shards, not 2")
+    rates = {}
+    for dem in (True, False):
+        out = {}
+        for label, cls, idx in (("single", Aligner, single),
+                                ("sharded", ShardedAligner, sharded)):
+            aligner = cls(idx, config.RunConfig(device_em=dem), device=dev)
+            reset_counts()
+            t0 = time.time()
+            out[label] = aligner.align_batch_to_sam(
+                ReadBatch.from_pairs(*pairs))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            rates[(label, dem)] = n_pairs / (time.time() - t0)
+            n = _launched()["sw_banded"]
+            log(f"sharded [{label}, device_em={dem}]: {len(out[label])} "
+                f"records, {rates[(label, dem)]} pairs/s, sw_banded "
+                f"launches {n}, card: {card}")
+            check(n > 0, f"{label} run never launched sw_banded")
+        same = (len(out["sharded"]) == len(out["single"])
+                and _norm(out["sharded"]) == _norm(out["single"]))
+        log(f"sharded [device_em={dem}]: ShardedAligner equals Aligner "
+            f"(MI masked)={same}")
+        check(same, f"ShardedAligner differs from Aligner (device_em={dem})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.fa")
+        _write_fasta(ref, contigs)
+        ids, _, s1, q1, s2, q2 = pairs
+        rank = {b: i for i, b in enumerate(sorted(set(bc_strs)))}
+        bucket = os.path.join(tmp, "all")
+        xb = [os.path.join(tmp, f"ema-bin-{k:03d}") for k in range(8)]
+        fhs = [open(p, "w") for p in [bucket, *xb]]
+        try:
+            for row in zip(bc_strs, ids, s1, q1, s2, q2):
+                line = " ".join(row) + "\n"
+                fhs[0].write(line)
+                fhs[1 + rank[row[0]] % 8].write(line)
+        finally:
+            for fh in fhs:
+                fh.close()
+        _cli("index", "-r", ref, "--shard-bases", str(SHARD_BASES))
+        check(len(os.listdir(ref + ".emaidx.d")) == 2,
+              f"index --shard-bases {SHARD_BASES} did not write 2 shards")
+        s_out, x_out = (os.path.join(tmp, f"{k}.sam") for k in "sx")
+        _cli_in_process(dev, ["align", "-r", ref, "--device", str(dev),
+                              "-s", bucket, "-o", s_out])
+        _cli_in_process(dev, ["align", "-r", ref, "--device", str(dev),
+                              "-x", "-o", x_out, *xb])
+        lib = ShardedAligner(sharded, config.RunConfig(), device=dev
+                             ).align_batch_to_sam(read_special_fastq(bucket))
+        same_s = _body(s_out) == lib
+        same_x = _norm(_body(x_out)) == _norm(lib)
+    log(f"sharded CLI: align -s identical to the library path={same_s}, "
+        f"align -x equal (MI masked)={same_x}")
+    check(same_s and same_x, "the sharded CLI differs from the library")
+    log(f"sharded pairs/s: ShardedAligner {rates[('sharded', True)]} "
+        f"(device EM), {rates[('sharded', False)]} (host EM); Aligner "
+        f"{rates[('single', True)]}, {rates[('single', False)]}; card: "
+        f"{card}")
+    return rates
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; "
@@ -1069,32 +1437,46 @@ def main() -> int:
         log(f"ptxas {name}: {len(regs)} kernels, registers {regs}, spill "
             f"stores {sum(spills)} bytes")
 
-    kstats = phase_kernel(dev, card)
+    t_start = time.time()
+
+    def phase(fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        log(f"phase {fn.__name__}: {time.time() - t0} s")
+        return out
+
+    kstats = phase(phase_kernel, dev, card)
     from ema_tpu.index import build_index
     t0 = time.time()
-    genome, pairs, truth = bench_world()
+    genome, pairs, truth, bc_strs = bench_world()
     idx = build_index({"chr1": genome})
     log(f"bench world: {idx.n} bp, {len(pairs[0])} pairs, sa_rate "
         f"{idx.sa_rate}, built in {time.time() - t0:.1f} s")
-    phase_fm(dev, card, genome, idx, pairs)
-    phase_em(dev, card, idx, pairs)
-    phase_golden(dev)
-    main_stats, default_lines = phase_main_path(dev, card, idx, pairs, truth)
-    phase_device_em(dev, card, idx, pairs, truth, default_lines)
-    phase_profile(dev, card, idx, pairs)
-    phase_seed_device(dev, card, idx, pairs, truth, default_lines)
-    phase_long_reads(dev)
-    phase_cli(dev)
+    phase(phase_fm, dev, card, genome, idx, pairs)
+    phase(phase_em, dev, card, idx, pairs)
+    phase(phase_golden, dev)
+    main_stats, default_lines = phase(phase_main_path, dev, card, idx, pairs,
+                                      truth)
+    phase(phase_device_em, dev, card, idx, pairs, truth, default_lines)
+    phase(phase_profile, dev, card, idx, pairs)
+    phase(phase_seed_device, dev, card, idx, pairs, truth, default_lines)
+    phase(phase_long_reads, dev)
+    phase(phase_cli, dev)
+    kstats["alu_probe"] = phase(phase_bench_sw, dev, card)
+    phase(phase_x, dev, card, genome, pairs, truth, bc_strs)
+    phase(phase_sharded, dev, card)
 
     torch.cuda.synchronize()
     check("jax" not in sys.modules, "jax was imported")
-    by_kernel = {k: main_stats[s] for s, k in MAIN_KERNEL.items()}
+    log(f"all phases: {time.time() - t_start} s")
+    launches = {k: main_stats[s]["launches"] for s, k in MAIN_KERNEL.items()}
+    launches["alu_probe"] = kstats["alu_probe"]["launches"]
     log("main path pairs/s: " + ", ".join(
         f"{s} {main_stats[s]['pairs_per_s']}" for s in MAIN_KERNEL)
         + f", card: {card}")
     log(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": by_kernel[name]["launches"],
+        "replaces": replaces, "launches": launches[name],
         "max_abs_err": kstats[name]["max_abs_err"],
         "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"]}
         for name, (_, source, replaces) in KERNELS.items()]}))

@@ -31,12 +31,13 @@ run their torch code on the CPU.
 
 Everything but the device code is the JAX package's jax-free host code,
 imported as it is; the numpy helpers that live in the jax-importing
-ema_tpu/core/pipeline.py are copied here under their names.  Dropped
-from the JAX Aligner: compile-shape bucketing and the padded row layout
-with its ``row_map`` (torch runs eagerly, so owners index the oriented
-rows directly), the device mesh, the CPU placement of the jitted EM, the
-128 MB occ rule for device locate (``resolve_seed_impl``), the sharded
-aligner and the replay tap.
+ema_tpu/core/pipeline.py are copied here under their names, and so are
+the hooks of the -x CLI (``cloud_id_base``, ``group_sink``,
+``replay_sink``) and the contig-sharded ``ShardedAligner``.  Dropped from
+the JAX Aligner: compile-shape bucketing and the padded row layout with
+its ``row_map`` (torch runs eagerly, so owners index the oriented rows
+directly), the device mesh, the CPU placement of the jitted EM and the
+128 MB occ rule for device locate (``resolve_seed_impl``).
 """
 
 from __future__ import annotations
@@ -187,6 +188,13 @@ class Aligner:
         self._cloud_id = 0
         self._id_lock = threading.Lock()   # MI ids under concurrent chunks
         self._contig_blob = None
+        # set on the shards of a ShardedAligner: the edit-distance window
+        # is applied after the cross-shard merge
+        self._defer_dist_window = False
+        # optional (batch, CandidateSet) tap for the reference-oracle
+        # replay (ema_tpu/utils/replay.ReplayWriter.add); called from the
+        # chunk workers, so a sink must be thread-safe
+        self.replay_sink = None
         # optional fine-grained stage timers (utils/metrics.Metrics);
         # chunk workers run concurrently, so stage sums are thread-seconds
         self.metrics = None
@@ -590,9 +598,15 @@ class Aligner:
         dist = nm + clip
 
         # edit-distance window filter vs the physical read's best-scoring
-        # candidate across both strands (align.c:1020-1024)
+        # candidate across both strands (align.c:1020-1024).  As a shard
+        # of a ShardedAligner the filter is deferred to the cross-shard
+        # merge: a per-shard leader's window could drop candidates the
+        # global leader's window keeps.
         phys = np.where(co >= n_reads, co - n_reads, co)
-        ok = _dist_window_keep(phys, sw["score"], dist, n_reads)
+        if self._defer_dist_window:
+            ok = np.ones(co.shape[0], bool)
+        else:
+            ok = _dist_window_keep(phys, sw["score"], dist, n_reads)
         # contig containment: alignment must not cross a contig boundary
         chrom = idx.contig_of(gpos).astype(np.int32)
         ref_len = _cigar_ref_len(nat["cigars"], nat["n_cigar"])
@@ -676,14 +690,16 @@ class Aligner:
         idents = np.array([batch.ids[p] for p in pairs], dtype=object)
         return recs, idents, pool
 
-    def align_batch_to_sam(self, batch: ReadBatch) -> List[str]:
+    def align_batch_to_sam(self, batch: ReadBatch,
+                           cloud_id_base: Optional[int] = None) -> List[str]:
         """Full pipeline for one ReadBatch; returns all SAM lines."""
         out: List[str] = []
-        for chunk_lines in self.iter_batch_sam(batch):
+        for chunk_lines in self.iter_batch_sam(batch, cloud_id_base):
             out.extend(chunk_lines)
         return out
 
-    def iter_batch_sam(self, batch: ReadBatch) -> Iterator[List[str]]:
+    def iter_batch_sam(self, batch: ReadBatch, cloud_id_base=None,
+                       group_sink=None) -> Iterator[List[str]]:
         """Full pipeline for one ReadBatch whose barcodes are complete
         (ema_tpu/core/pipeline.py:948-1142).
 
@@ -694,6 +710,16 @@ class Aligner:
         seeding and device time, and a batch's device EM overlaps the
         previous batch's selection and emission.  Yields lists of SAM
         lines as groups complete.
+
+        ``cloud_id_base``: start of a private MI (cloud id) namespace for
+        this call, so that -x gives each bucket ids that do not depend on
+        bucket concurrency or resume order; a callable
+        ``(bc, n_clouds) -> base`` allocates per group (bucket-coalesced
+        -x); None draws from the aligner-wide counter.
+
+        ``group_sink``: optional ``(bc, lines)`` callback; when given,
+        each barcode group's lines go to the sink instead of being
+        yielded (coalesced -x routes them to per-bucket parts).
         """
         P = len(batch.ids)
         B = max(self.cfg.batch_size, 1)
@@ -717,6 +743,8 @@ class Aligner:
                 seqs=batch.seqs[2 * s:2 * e], quals=batch.quals[2 * s:2 * e],
                 codes=batch.codes[2 * s:2 * e], lens=batch.lens[2 * s:2 * e])
             cs = self.generate_candidates(sub)
+            if self.replay_sink is not None:
+                self.replay_sink(sub, cs)
             recs, idents, part_pool = self.candidates_to_records(sub, cs, s)
             # bc-sort within the chunk (candidate order interleaves the
             # forward and reverse orientations); stable, so within one
@@ -729,6 +757,9 @@ class Aligner:
             pair_bc[int(b)] = pair_bc.get(int(b), 0) + 1
 
         lines: List[str] = []
+        alloc_base = cloud_id_base if callable(cloud_id_base) else None
+        local_cloud_id = (None if cloud_id_base is None or alloc_base
+                          else [int(cloud_id_base)])
         rng = np.random.default_rng(self.cfg.seed)
         chunk_starts = list(range(0, P, B))
         pend_recs = empty_records(0)
@@ -791,14 +822,25 @@ class Aligner:
                 for st in states:
                     # reserve a cloud-id range atomically: concurrent
                     # batches never produce duplicate MI ids
-                    with self._id_lock:
-                        base = self._cloud_id
-                        self._cloud_id += st.n_clouds
-                    finished.append(base)
-                results = groups_mod.finish_groups_batch(states, finished)
+                    g_bc = int(st.R["bc"][0]) if st.n else 0
+                    if alloc_base is not None:
+                        base = alloc_base(g_bc, st.n_clouds)
+                    elif local_cloud_id is not None:
+                        base = local_cloud_id[0]
+                        local_cloud_id[0] += st.n_clouds
+                    else:
+                        with self._id_lock:
+                            base = self._cloud_id
+                            self._cloud_id += st.n_clouds
+                    finished.append((g_bc, base))
+                results = groups_mod.finish_groups_batch(
+                    states, [b for _, b in finished])
                 line_lists = self._emit_groups(batch, results, pool)
-            for glines in line_lists:
-                lines.extend(glines)
+            for (g_bc, _), glines in zip(finished, line_lists):
+                if group_sink is not None:
+                    group_sink(g_bc, glines)
+                else:
+                    lines.extend(glines)
 
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
@@ -840,16 +882,18 @@ class Aligner:
         if lines:
             yield lines
 
-    def align_stream(self, groups) -> Iterator[List[str]]:
+    def align_stream(self, groups, flush_pairs: Optional[int] = None
+                     ) -> Iterator[List[str]]:
         """Streaming alignment over an iterator of whole barcode groups.
 
         ``groups`` yields (ids, bcs, s1, q1, s2, q2) tuples, one complete
         barcode each (io.iter_fastq_pair_groups).  Groups accumulate into
-        bounded flush batches (8 chunks) and SAM lines are
-        yielded as they are produced, so RSS stays flat regardless of
-        input size.  Copied from ema_tpu/core/pipeline.py:1144-1179.
+        bounded flush batches (``flush_pairs``, by default 8 chunks) and
+        SAM lines are yielded as they are produced, so RSS stays flat
+        regardless of input size.  Copied from
+        ema_tpu/core/pipeline.py:1144-1179.
         """
-        flush = 8 * max(self.cfg.batch_size, 1)
+        flush = flush_pairs or 8 * max(self.cfg.batch_size, 1)
         ids: List[str] = []
         bcs: List[int] = []
         s1: List[str] = []
@@ -892,7 +936,10 @@ class Aligner:
         bc_len = self.cfg.platform.bc_len
         lr_tags = not self.cfg.nobc
         if self._contig_blob is None:
-            self._contig_blob = samout.make_contig_blob(self.index.names)
+            with self._id_lock:     # -x -j N emits from N threads
+                if self._contig_blob is None:
+                    self._contig_blob = samout.make_contig_blob(
+                        self.index.names)
         blob, coff = self._contig_blob
         rg_tag = rg_id.split()[0] if rg_id else None
 
@@ -993,6 +1040,82 @@ class Aligner:
                     0.0, 0, 0, None, rg_id, self.cfg.bx_index,
                     is_hap, bc_len, bc_str=bc_str, lr_tags=lr_tags))
         return lines
+
+
+class ShardedAligner(Aligner):
+    """Aligner over a contig-sharded index (``ShardedIndex``), the port of
+    ema_tpu/core/pipeline.py:1313-1345.
+
+    One sub-``Aligner`` per shard holds that shard's device state; each
+    chunk's candidates come from every shard and are merged with global
+    contig numbers (``contig_base``), re-applying the cross-shard
+    edit-distance window and the uniqueness and second-best statistics
+    that a single index gives for free.  Like the JAX facade it does not
+    run ``Aligner.__init__``: what ``iter_batch_sam`` reads from ``self``
+    (the device, the scorer and seeder choices, the resolved cfg, the
+    stage timers) comes from the first sub-aligner.  The facade
+    dispatches every EM, on the one EM stream it keeps; the subs never
+    do.
+    """
+
+    def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
+                 device, sw_impl: Optional[str] = None,
+                 seed_impl: Optional[str] = None):
+        if not index.shards:
+            raise ValueError("ShardedAligner: the index has no shards")
+        self.index = index                    # ShardedIndex facade
+        self.subs = [Aligner(sh, cfg, device=device, sw_impl=sw_impl,
+                             seed_impl=seed_impl) for sh in index.shards]
+        first = self.subs[0]
+        self.device, self.sw_impl = first.device, first.sw_impl
+        self.seed_impl = first.seed_impl
+        self.cfg = first.cfg                  # auto defaults resolved
+        self._em_stream = first._em_stream
+        for sub in self.subs:
+            sub._defer_dist_window = True     # window applied at merge
+            sub._em_stream = None             # the subs never dispatch EM
+        self._cloud_id = 0
+        self._id_lock = threading.Lock()
+        self._contig_blob = None
+        self._defer_dist_window = False
+        self.replay_sink = None
+        self.metrics = None
+
+    def generate_candidates(self, batch: ReadBatch) -> CandidateSet:
+        css = [sub.generate_candidates(batch) for sub in self.subs]
+        return _merge_candidate_sets(css, self.index.contig_base,
+                                     2 * len(batch.ids))
+
+
+def _merge_candidate_sets(css: List[CandidateSet], contig_base: List[int],
+                          n_reads: int) -> CandidateSet:
+    """Concatenate per-shard candidates; redo the global filters and
+    statistics.  Copied from ema_tpu/core/pipeline.py:1348-1377."""
+    if not css:
+        return _empty_candidate_set()
+    parts = {}
+    for f in CandidateSet.__dataclass_fields__:
+        vals = [getattr(cs, f) for cs in css]
+        if f == "chrom":
+            vals = [v + np.int32(contig_base[i]) for i, v in enumerate(vals)]
+        parts[f] = np.concatenate(vals)
+    cs = CandidateSet(**parts)
+    if cs.owner.shape[0] == 0:
+        return cs
+
+    # global edit-distance window vs the best-scoring candidate per read
+    # (align.c:1020-1024; per-shard filtering used per-shard bests)
+    keep = _dist_window_keep(cs.owner, cs.sw, cs.nm + cs.clip, n_reads)
+    cs = CandidateSet(**{
+        f: getattr(cs, f)[keep] for f in CandidateSet.__dataclass_fields__})
+
+    # global uniqueness + sub stats (mirrors _finalize_candidates)
+    n_per = np.bincount(cs.owner, minlength=n_reads)
+    cs.unique[:] = n_per[cs.owner] == 1
+    _, sub = _best_and_sub(cs.owner, cs.sw, n_reads)
+    cs.sub[:] = sub
+    cs.sub_n[:] = np.maximum(n_per[cs.owner] - 2, 0)
+    return cs
 
 
 # ----------------------------------------------------------------------

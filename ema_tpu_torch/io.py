@@ -1,6 +1,6 @@
 """Input readers for the align stage (reference: src/align.c:637-843).
 
-A copy of ema_tpu/io.py:1-188, which imports ``ReadBatch`` from the
+A copy of ema_tpu/io.py:1-199, which imports ``ReadBatch`` from the
 jax-importing ema_tpu/core/pipeline.py; these readers return the port's
 ``ReadBatch`` and import no jax.  Three input modes, as in the reference:
   - special EMA-FASTQ bucket files (`-s`): one line per pair
@@ -71,6 +71,44 @@ def _read_fastq_records(path: str):
             f.readline()
             qual = f.readline().rstrip("\n")
             yield rid.rstrip("\n"), seq, qual
+
+
+def read_fastq_pair(fq1_path: str, fq2_path: str | None,
+                    platform: str) -> ReadBatch:
+    """Standard path: two barcode-sorted FASTQs (or one interleaved),
+    read whole (the ``-1/-2 --sort`` path).
+
+    ``platform == "none"``: no-barcode mode — every pair gets a unique
+    synthetic barcode so each forms its own group (the align path for the
+    reference's ema-nobc reads, README.md:132-137).
+    """
+    ids, bcs, s1, q1, s2, q2 = [], [], [], [], [], []
+    if fq2_path is None or fq2_path == fq1_path:
+        recs = list(_read_fastq_records(fq1_path))
+        r1s, r2s = recs[0::2], recs[1::2]
+    else:
+        r1s = list(_read_fastq_records(fq1_path))
+        r2s = list(_read_fastq_records(fq2_path))
+    if len(r1s) != len(r2s):
+        raise ValueError("unpaired FASTQ inputs")
+    for i, ((id1, sa, qa), (_, sb, qb)) in enumerate(zip(r1s, r2s)):
+        if platform == "none":
+            rid = id1[1:] if id1.startswith("@") else id1
+            ident, bc = rid.split(" ")[0], i
+        else:
+            ident, bc = extract_bc_from_id(id1, platform)
+        ids.append(ident)
+        bcs.append(bc)
+        s1.append(sa)
+        q1.append(qa)
+        s2.append(sb)
+        q2.append(qb)
+    # group by barcode, preserving arrival order within a barcode
+    order = sorted(range(len(ids)), key=lambda i: bcs[i])
+    return ReadBatch.from_pairs(
+        [ids[i] for i in order], [bcs[i] for i in order],
+        [s1[i] for i in order], [q1[i] for i in order],
+        [s2[i] for i in order], [q2[i] for i in order])
 
 
 def iter_fastq_pair_groups(fq1_path: str, fq2_path: str | None,

@@ -1,5 +1,5 @@
-"""Build and load the SW CUDA kernels: one nvcc call per ``csrc/<name>.cu``
-into a plain-C shared library, bound with ctypes.
+"""Build and load the port's CUDA kernels: one nvcc call per
+``csrc/<name>.cu`` into a plain-C shared library, bound with ctypes.
 
 Nothing compiles at import: the first CUDA call of a kernel builds its
 source for ``sm_90a`` into ``build/ema_tpu_torch/`` at the checkout root,
@@ -8,8 +8,9 @@ later calls (and later processes) load the cached library.
 ``load_all()`` starts every missing build at once, one nvcc process per
 source.  A failed build raises; there is no fallback.
 
-Each library exports ``<name>_launch`` with one signature (see
-``LAUNCH_ARGTYPES``) and, for the banded kernels, ``<name>_max_wl``.
+Each library exports ``<name>_launch`` with the argument types that
+``KERNELS`` gives it (the SW signature, or the ALU probe's) and, for the
+banded kernels, ``<name>_max_wl``.
 """
 
 from __future__ import annotations
@@ -26,13 +27,18 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ema_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("sw_banded", "sw_banded16", "sw_banded_packed", "sw_batch")
 
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 # (text, text_n, oriented, L, olens, owners, win_lo, win_len, wl, N,
 #  max_wl, match, mismatch, gap_open, gap_extend, clip, out, stream)
-LAUNCH_ARGTYPES = [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i64, _i32,
-                   _i32, _i32, _i32, _i32, _i32, _p, _p]
+SW_ARGTYPES = [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i64, _i32,
+               _i32, _i32, _i32, _i32, _i32, _p, _p]
+# (x, out, n, K, unroll, dpx, stream)
+PROBE_ARGTYPES = [_p, _p, _i64, _i32, _i32, _i32, _p]
+# kernel -> the argument types of its <name>_launch
+KERNELS = {"sw_banded": SW_ARGTYPES, "sw_banded16": SW_ARGTYPES,
+           "sw_banded_packed": SW_ARGTYPES, "sw_batch": SW_ARGTYPES,
+           "alu_probe": PROBE_ARGTYPES}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -86,7 +92,7 @@ def _bind(name: str) -> SimpleNamespace:
     lib = ctypes.CDLL(str(_so_path(name)))
     launch = getattr(lib, f"{name}_launch")
     launch.restype = ctypes.c_int
-    launch.argtypes = LAUNCH_ARGTYPES
+    launch.argtypes = KERNELS[name]
     max_wl = getattr(lib, f"{name}_max_wl", None)
     if max_wl is not None:
         max_wl.restype = ctypes.c_int

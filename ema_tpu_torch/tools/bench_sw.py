@@ -1,0 +1,453 @@
+"""SW-kernel micro-benchmark and int32 roofline of the port, at pipeline
+shapes: the port of tools/bench_sw.py.
+
+    python -m ema_tpu_torch.tools.bench_sw [cpu] [--json OUT.json]
+
+Without ``cpu`` it runs on the first CUDA card (and fails if there is
+none) at the JAX tool's SHAPE, B = 16,384 candidates of m = 100 read bases
+against n = 192-base windows with a W = 128-lane band; ``cpu`` runs the
+plain versions on the CPU at B = 64 and takes no probe step.
+EMA_TPU_BENCH_SW_B sets B in either mode.  Steps, in order, each under
+the JAX tool's name where it has one:
+
+  banded-pallas      the sw_banded kernel at W (ops/sw.gather_score)
+  banded-packed      sw_banded_packed with _case_wl's corridors
+  banded16           sw_banded16 (a kernel the JAX tool never timed)
+  pallas             sw_batch, the whole window
+  banded-scan        sw_score_banded_ref, the plain row sweep, same device
+  scan               sw_score_batch_ref, the plain anti-diagonal sweep
+  banded-packed-ref  the wl-masked plain sweep, banded-packed's contract
+  vpu-probe          the int32 ALU probe (ops/probe.py), alu and dpx forms
+  wl-sample          corridor widths of the port's Aligner on a 400 kbp
+                     world, from a chaining.chain_hits spy
+
+The JAX tool's banded-pallas-t128/-t512/-t1024 steps set the Pallas
+grid's tile_b; the CUDA kernels have no such knob, so they have no
+counterpart.  The kernels score a device text, not a [B, n] refs array,
+so the case's windows are laid end to end as the text (``gather_layout``).
+Steps run in this process, one after another; the artifact is rewritten
+after each, and a step that fails (or a variant that disagrees) raises,
+so the tool exits non-zero.  On a card every time is taken with CUDA
+events and every number stands beside the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import collections
+import functools
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ema_tpu_torch.ops import _build, probe
+from ema_tpu_torch.ops.sw import (gather_score, sw_score_banded_ref,
+                                  sw_score_batch_ref)
+
+ROOT = Path(__file__).resolve().parents[2]
+SHAPE = (16384, 100, 192, 128)      # B, m, n, W (tools/bench_sw.py:33)
+CPU_B = 64
+ITERS = 5
+SW_KW = dict(match=1, mismatch=4, gap_open=6, gap_extend=1, clip=5)
+OUTS = ("score", "qb", "qe", "ref_end")
+# the variants whose outputs must agree bit for bit (banded-packed is held
+# to banded-packed-ref instead: its contract is the wl-masked corridor)
+EXACT = ("banded-pallas", "banded16", "pallas", "banded-scan", "scan")
+
+# Static int32 op count per banded DP cell of sw_rowsweep.cuh's row sweep
+# at W = 128 (4 lanes per thread), by the JAX tool's rule (one unit per
+# elementwise op, select, compare or shuffle; a max is one op,
+# ``c ? a : b`` on a fresh compare two):
+#   pass 1, per lane: k and the k < wl guard 2, the window base (text_at)
+#     6, vertical open/extend 2, F 1, its start 2, max(H, fresh) 1, sub
+#     6, Hd 1, Sd 2, valid 3, H0 1, S0 2, the scan value 3, the thread
+#     aggregate 3 = 35;
+#   pass 2, per lane: guard 2, Hd/Sd again 10, valid 3, H0/S0 3, E 3,
+#     max(E, F) 1, H 1, SH 4, the scan value 2, the running prefix 3,
+#     H/F stores 2, the best-cell offer 18 = 52;
+#   per thread and row, over its 4 lanes: the loop 3, 4 shuffles down 4,
+#     the segment edge 5, the read base 3, fresh and end_adj 4, col0 2,
+#     the 5-step carry scan 35, the exclusive shift 5 = 62, so 15.5 a cell.
+# 35 + 52 + 15.5 = 102.5, counted as 102.
+BANDED_OPS_PER_CELL = 102
+# int32 results per clock per SM at compute capability 9.0 for 32-bit
+# integer add, compare/min/max and bitwise ops: the throughput table of
+# the CUDA C++ Programming Guide ("Arithmetic Instructions").
+INT32_OPS_PER_CLOCK_PER_SM = 64
+K_CHECK = 256              # rounds of the probe's check against its plain
+PROBE_SAMPLE = 4           # full-K elements checked against the plain
+# the integer SASS opcodes of the probe's chain steps
+INT_OPCODES = ("LOP3", "IADD3", "VIADD", "IMNMX", "VIMNMX", "VIADDMNMX")
+
+
+def log(msg: str) -> None:
+    print(msg, file=sys.stderr, flush=True)
+
+
+def make_case(B, m, n, W):
+    """tools/bench_sw.py:71-84: reads planted in random windows with 3
+    substitutions each."""
+    rng = np.random.default_rng(0)
+    reads = rng.integers(0, 4, (B, m)).astype(np.int32)
+    refs = rng.integers(0, 4, (B, n)).astype(np.int32)
+    rlens = np.full(B, m, np.int32)
+    nlens = np.full(B, n, np.int32)
+    off = rng.integers(0, min(W - 8, n - m), B)
+    for b in range(B):
+        o = int(off[b])
+        refs[b, o:o + m] = reads[b]
+        for _ in range(3):
+            p = rng.integers(0, m)
+            refs[b, o + p] = (refs[b, o + p] + 1) % 4
+    return reads, rlens, refs, nlens
+
+
+def _case_wl(B):
+    """tools/bench_sw.py:87-91: pipeline-like corridors, a clipped normal
+    within the packed tier's 64 lanes."""
+    rng = np.random.default_rng(1)
+    return np.clip(rng.normal(50, 10, B), 8, 64).astype(np.int32)
+
+
+def gather_layout(reads, rlens, refs, nlens, wl, device) -> dict:
+    """The case as gather_score's inputs: the B windows laid end to end
+    as the text (window b at b * n), read b its own owner."""
+    B, n = refs.shape
+
+    def put(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return dict(text=put(refs.reshape(-1), np.uint8),
+                oriented=put(reads, np.uint8), olens=put(rlens, np.int32),
+                owners=put(np.arange(B), np.int32),
+                win_lo=put(np.arange(B, dtype=np.int64) * n, np.int64),
+                win_len=put(nlens, np.int32), wl=put(wl, np.int32))
+
+
+def _gather(layout, scorer):
+    c = layout
+    return gather_score(c["text"], c["oriented"], c["olens"], c["owners"],
+                        c["win_lo"], c["win_len"], c["wl"], scorer=scorer,
+                        **SW_KW)
+
+
+def _timed(fn, device, iters):
+    """(output of a warm-up call, mean ms of ``iters`` more calls):
+    CUDA events on a card, the host clock on the CPU."""
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(iters):
+            fn()
+        t1.record()
+        torch.cuda.synchronize(device)
+        return out, t0.elapsed_time(t1) / iters
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return out, (time.perf_counter() - t0) / iters * 1e3
+
+
+@functools.cache
+def _simulate():
+    """tests/simulate.py, loaded by path (as chip_smoke.py loads it)."""
+    spec = importlib.util.spec_from_file_location(
+        "ema_simulate", ROOT / "tests" / "simulate.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def max_sm_clock_mhz() -> float:
+    """The first card's max SM clock, from nvidia-smi."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(r.stdout.strip().splitlines()[0])
+
+
+def sass_opcodes(kernel: str, function: str) -> dict:
+    """Opcode counts of the function of ``kernel``'s library whose mangled
+    name contains ``function``, from ``cuobjdump -sass``: what the
+    compiler emitted for it."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass", str(_build._so_path(kernel))],
+                       capture_output=True, text=True, check=True,
+                       timeout=300)
+    counts, fn = collections.Counter(), None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(
+            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m and fn and function in fn:
+            counts[m.group(1)] += 1
+    if not counts:
+        raise RuntimeError(f"no SASS for {function} in {kernel}")
+    return dict(counts.most_common())
+
+
+def step_probe(device) -> dict:
+    """The probe on a card-filling grid: both forms bit-exact against
+    alu_probe_ref over the whole grid at K_CHECK rounds (timed beside the
+    plain version there), then timed at the TPU tool's K with every
+    timed output held to the plain version on a sample of elements
+    and the two forms held to each other."""
+    n = probe.card_elements(device)
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    U = probe.UNROLL_TPU
+    want, plain_ms = _timed(lambda: probe.alu_probe_ref(x, K_CHECK, U),
+                            device, 1)
+    res = {"probe_elements": n, "probe_unroll": U, "probe_k_check": K_CHECK,
+           "probe_k": probe.K_TPU, "alu_probe_plain_ms": plain_ms}
+    for form in probe.FORMS:
+        got, ms = _timed(lambda: probe.alu_probe(x, K_CHECK, U, form),
+                         device, ITERS)
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise RuntimeError(f"vpu-probe: the {form} form differs from "
+                               f"alu_probe_ref at K={K_CHECK} (max abs "
+                               f"err {err})")
+        res[f"{form}_k_check_ms"] = ms
+        res[f"{form}_max_abs_err"] = err
+    sample = torch.linspace(0, n - 1, PROBE_SAMPLE).long()
+    want_full = probe.alu_probe_ref(x[sample].cpu(), probe.K_TPU, U)
+    ops = probe.probe_ops(n, probe.K_TPU, U)
+    outs = {}
+    for form in probe.FORMS:
+        best = float("inf")
+        for r in range(4):                 # a warm-up, then 3 timed
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = probe.alu_probe(x, probe.K_TPU, U, form)
+            t1.record()
+            torch.cuda.synchronize(device)
+            if not torch.equal(out[sample].cpu(), want_full):
+                raise RuntimeError(f"vpu-probe: the {form} form differs "
+                                   f"from alu_probe_ref at K={probe.K_TPU}")
+            if r:
+                best = min(best, t0.elapsed_time(t1))
+        outs[form] = out
+        res[f"{form}_ms"] = best
+        res[f"{form}_int32_tops"] = ops / (best * 1e-3) / 1e12
+    if not torch.equal(outs["alu"], outs["dpx"]):
+        raise RuntimeError("vpu-probe: the alu and dpx forms differ at the "
+                           "full K")
+    res["vpu_int32_tops_measured"] = res["alu_int32_tops"]
+    res["dpx_int32_tops_measured"] = res["dpx_int32_tops"]
+    props = torch.cuda.get_device_properties(device)
+    clock = max_sm_clock_mhz()
+    res.update(sm_count=props.multi_processor_count,
+               sm_clock_max_mhz=clock,
+               int32_ops_per_clock_per_sm=INT32_OPS_PER_CLOCK_PER_SM,
+               int32_tops_theoretical=props.multi_processor_count * clock
+               * 1e6 * INT32_OPS_PER_CLOCK_PER_SM / 1e12)
+    # what ptxas made of each form's UNROLL = 32 body: integer
+    # instructions per counted chain step (3 ops), and the instruction rate
+    for form in probe.FORMS:
+        ops_sass = sass_opcodes(
+            "alu_probe", f"alu_probe_kernelILi{U}ELb{int(form == 'dpx')}E")
+        per_step = sum(ops_sass.get(o, 0) for o in INT_OPCODES) / (
+            U * probe.CHAINS)
+        res[f"{form}_sass"] = ops_sass
+        res[f"{form}_sass_int_instr_per_step"] = per_step
+        res[f"{form}_int32_instr_tera_per_s"] = (
+            res[f"{form}_int32_tops"] * per_step / 3)
+    res["sw_banded_sass_w128"] = sass_opcodes(
+        "sw_banded", "rowsweep_kernelILi4ELi32ELi1E")
+    log(f"vpu-probe: {n} elements, K={probe.K_TPU} x {U}: alu "
+        f"{res['alu_ms']} ms = {res['alu_int32_tops']} Tops/s, dpx "
+        f"{res['dpx_ms']} ms = {res['dpx_int32_tops']} Tops/s (3 ops a "
+        f"step; SASS integer instructions a step: alu "
+        f"{res['alu_sass_int_instr_per_step']}, dpx "
+        f"{res['dpx_sass_int_instr_per_step']}, so "
+        f"{res['alu_int32_instr_tera_per_s']} and "
+        f"{res['dpx_int32_instr_tera_per_s']} T instructions/s); "
+        f"theoretical {res['int32_tops_theoretical']} Tops/s "
+        f"({props.multi_processor_count} SMs x {clock} MHz x "
+        f"{INT32_OPS_PER_CLOCK_PER_SM}); at K={K_CHECK}: kernel "
+        f"{res['alu_k_check_ms']} ms, plain {plain_ms} ms, bit-exact")
+    return res
+
+
+def step_wl_sample(device) -> dict:
+    """Per-candidate corridors (wl) of real chaining on the 400 kbp world
+    of tools/bench_sw.py:239-244, through the port's Aligner (on the CPU
+    with the native scorer: wl comes from chaining, not from scoring)."""
+    from ema_tpu import config
+    from ema_tpu.index import build_index
+    from ema_tpu.ops import chaining
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+
+    sim = _simulate()
+    rng = np.random.default_rng(7)
+    genome = sim.rand_genome(rng, 400_000)
+    idx = build_index({"chr1": genome})
+    ids, _, bcs, s1, q1, s2, q2, _ = sim.simulate_pairs(
+        rng, sim.to_str(genome), n_barcodes=33, frags_per_bc=(2, 4),
+        pairs_per_frag=(15, 25), frag_len=30_000, read_len=100, err=0.003)
+    samples = []
+    orig = chaining.chain_hits
+
+    def spy(*a, **kw):
+        cands = orig(*a, **kw)
+        if len(samples) < 64:
+            samples.append(np.asarray(cands.wl).copy())
+        return cands
+
+    chaining.chain_hits = spy
+    try:
+        aligner = Aligner(idx, config.RunConfig(), device=device,
+                          sw_impl="native" if device.type == "cpu" else None)
+        aligner.align_batch_to_sam(ReadBatch.from_pairs(
+            ids, bcs, s1, q1, s2, q2))
+    finally:
+        chaining.chain_hits = orig
+    allwl = np.concatenate(samples) if samples else np.zeros(0)
+    allwl = allwl[allwl > 0]
+    W = SHAPE[3]
+    res = {"pipeline_wl_mean": float(allwl.mean()),
+           "pipeline_wl_p95": float(np.percentile(allwl, 95)),
+           "pipeline_wl_samples": int(allwl.size),
+           "band_padding_waste_factor": W / float(allwl.mean())}
+    log(f"wl-sample: mean {res['pipeline_wl_mean']} p95 "
+        f"{res['pipeline_wl_p95']} over {res['pipeline_wl_samples']} "
+        f"candidates: a fixed {W}-lane band pads "
+        f"{res['band_padding_waste_factor']}x")
+    return res
+
+
+def run(device, B=None, out_json=None) -> dict:
+    """Every step on ``device`` at batch ``B`` (SHAPE's on a card,
+    CPU_B on the CPU); returns the artifact, also written to ``out_json``
+    after each step when given."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    B = B or (SHAPE[0] if on_card else CPU_B)
+    _, m, n, W = SHAPE
+    art = {"what": "SW kernel micro-benchmark + int32 roofline (port)",
+           "shape": {"B": B, "m": m, "n": n, "W": W},
+           "device": (torch.cuda.get_device_name(device) if on_card
+                      else "cpu"), "variants": {}}
+    if on_card:
+        from ema_tpu_torch.utils.backend import gpu_info
+        art["card"] = gpu_info()
+
+    def flush():
+        if out_json:
+            with open(out_json, "w") as f:
+                json.dump(art, f, indent=1)
+
+    reads, rlens, refs, nlens = make_case(B, m, n, W)
+    wl_full = np.full(B, W, np.int32)
+    wl_case = _case_wl(B)
+    lay = gather_layout(reads, rlens, refs, nlens, wl_full, device)
+    lay_wl = dict(lay, wl=lay["wl"].new_tensor(wl_case))
+    raw = [torch.from_numpy(a).to(device) for a in (reads, rlens, refs,
+                                                    nlens)]
+    raw_wl = torch.from_numpy(wl_full).to(device)
+    steps = {
+        "banded-pallas": lambda: _gather(lay, "banded"),
+        "banded-packed": lambda: _gather(lay_wl, "packed"),
+        "banded16": lambda: _gather(lay, "banded16"),
+        "pallas": lambda: _gather(lay, "scan"),
+        "banded-scan": lambda: sw_score_banded_ref(*raw, W, wl=raw_wl,
+                                                   **SW_KW),
+        "scan": lambda: sw_score_batch_ref(*raw, **SW_KW),
+        "banded-packed-ref": lambda: sw_score_banded_ref(
+            *raw, W, wl=lay_wl["wl"], **SW_KW),
+    }
+    outs = {}
+    bcells, cells = B * m * W, B * m * n
+    for name, fn in steps.items():
+        out, ms = _timed(fn, device, ITERS if on_card else 1)
+        outs[name] = out.cpu().numpy()
+        c = bcells if "banded" in name else cells
+        res = {"ms": ms, "gcells_per_s": c / ms / 1e6,
+               "full_window_gcells_per_s": cells / ms / 1e6,
+               "device": art["device"]}
+        if name == "banded-packed":
+            # equiv128 compares with banded-pallas; corridor counts only
+            # the in-band cells
+            res["equiv128_gcells_per_s"] = bcells / ms / 1e6
+            res["physical_gcells_per_s"] = B * m * 64 / ms / 1e6
+            res["corridor_gcells_per_s"] = float(
+                (m * wl_case.astype(np.int64)).sum()) / ms / 1e6
+        if name != "banded-packed-ref":
+            art["variants"][name] = res
+        log(f"{name}: {ms} ms, {res['gcells_per_s']} Gcell/s on "
+            f"{art.get('card', art['device'])}")
+        flush()
+
+    mism = [[EXACT[0], v, k] for v in EXACT[1:]
+            for i, k in enumerate(OUTS)
+            if not np.array_equal(outs[EXACT[0]][:, i], outs[v][:, i])]
+    art["bit_exact_across_variants"] = not mism
+    if mism:
+        art["mismatches"] = mism
+    pk = [k for i, k in enumerate(OUTS) if not np.array_equal(
+        outs["banded-packed"][:, i], outs["banded-packed-ref"][:, i])]
+    art["packed_bit_exact_vs_wl_masked_ref"] = not pk
+    if pk:
+        art["packed_mismatch_keys"] = pk
+    flush()
+
+    if on_card:
+        art.update(step_probe(device))
+        flush()
+    art.update(step_wl_sample(device))
+    art["banded_ops_per_cell_static"] = BANDED_OPS_PER_CELL
+    if on_card:
+        best = art["variants"]["banded-pallas"]["gcells_per_s"]
+        ach = best * 1e9 * BANDED_OPS_PER_CELL
+        art["banded_int32_tops_achieved"] = ach / 1e12
+        art["banded_roofline_pct"] = 100.0 * ach / (
+            art["vpu_int32_tops_measured"] * 1e12)
+        art["banded_roofline_pct_of_theoretical"] = 100.0 * ach / (
+            art["int32_tops_theoretical"] * 1e12)
+        log(f"sw_banded: {best} Gcell/s x {BANDED_OPS_PER_CELL} ops = "
+            f"{art['banded_int32_tops_achieved']} Tops/s, "
+            f"{art['banded_roofline_pct']}% of the probe's "
+            f"{art['vpu_int32_tops_measured']} Tops/s, "
+            f"{art['banded_roofline_pct_of_theoretical']}% of the "
+            f"theoretical {art['int32_tops_theoretical']}; card: "
+            f"{art['card']}")
+    flush()
+    if mism or pk:
+        raise RuntimeError(f"bench_sw: variants disagree: {mism or pk}")
+    return art
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cpu = "cpu" in argv[:1]
+    out_json = "BENCH_SW_torch.json"
+    if "--json" in argv:
+        out_json = argv[argv.index("--json") + 1]
+    if not cpu and not torch.cuda.is_available():
+        log("bench_sw: no CUDA card (torch.cuda.is_available() is false); "
+            "`cpu` runs the plain versions")
+        return 1
+    env_b = os.environ.get("EMA_TPU_BENCH_SW_B")
+    run("cpu" if cpu else "cuda", int(env_b) if env_b else None, out_json)
+    log(f"wrote {out_json}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -358,6 +358,50 @@ assert main(["align", "-r", ref, "-s", bucket, "-o", out, "--device", "cpu",
 with open(out) as f:
     recs = [ln for ln in f if not ln.startswith("@")]
 assert sorted(recs) == sorted(greedy), "CLI and library greedy SAM differ"
+del os.environ["EMA_TPU_SEED_IMPL"]
+# count -> preproc -> align -x --sort --manifest, as a user runs them
+wl = os.path.join(tmp, "wl.txt")
+with open(wl, "w") as f:
+    f.write("".join(b + "\n" for b in sorted(set(bc_strs))))
+fq = os.path.join(tmp, "inter.fq")
+with open(fq, "w") as f:
+    for row in zip(ids, bc_strs, s1, q1, s2, q2):
+        r1 = row[1] + "ACGTACG" + row[2]
+        f.write(f"@{row[0]}\n{r1}\n+\n{'I' * 23}{row[3]}\n"
+                f"@{row[0]}\n{row[4]}\n+\n{row[5]}\n")
+class Stdin:
+    buffer = None
+sys.stdin = Stdin
+for mode, extra in (("count", []), ("preproc", ["-n", "3", "-t", "2"])):
+    with open(fq, "rb") as fh:
+        Stdin.buffer = fh
+        dest = "cnt" if mode == "count" else "bkt"
+        inputs = [] if mode == "count" else [os.path.join(tmp, "cnt.ema-ncnt")]
+        assert main([mode, "-w", wl, "-o", os.path.join(tmp, dest), *extra,
+                     *inputs]) == 0
+buckets = sorted(os.path.join(tmp, "bkt", b)
+                 for b in os.listdir(os.path.join(tmp, "bkt"))
+                 if b.startswith("ema-bin-"))
+xout = os.path.join(tmp, "x.sam")
+for _ in range(2):     # the second run resumes from the manifest
+    assert main(["align", "--device", "cpu", "-r", ref, "-x", "--sort",
+                 "--manifest", os.path.join(tmp, "run.jsonl"), "-o", xout,
+                 *buckets]) == 0
+with open(xout) as f:
+    assert len([ln for ln in f if not ln.startswith("@")]) == len(lines)
+# a contig-sharded index aligns through the ShardedAligner
+ref2 = os.path.join(tmp, "two.fa")
+with open(ref2, "w") as f:
+    f.write(">a\n" + gs[:20_000] + "\n>b\n" + gs[20_000:] + "\n")
+assert main(["index", "-r", ref2, "--shard-bases", "25000", "-j", "1"]) == 0
+assert os.path.isdir(ref2 + ".emaidx.d")
+assert main(["align", "-r", ref2, "-s", bucket, "-o", out, "--device",
+             "cpu"]) == 0
+with open(out) as f:
+    assert sum(1 for ln in f if not ln.startswith("@")) == len(lines)
+from ema_tpu_torch.tools import bench_sw
+os.environ["EMA_TPU_BENCH_SW_B"] = "16"
+assert bench_sw.main(["cpu", "--json", os.path.join(tmp, "bsw.json")]) == 0
 assert "jax" not in sys.modules, "jax was imported"
 print("NO_JAX_OK", len(recs))
 """
