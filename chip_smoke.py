@@ -5,17 +5,24 @@
 
 Runs from the root of a checkout, needs one CUDA card and builds the five
 kernels (four SW kernels and the int32 ALU probe) from the sources in the
-checkout (one nvcc per source, all started together, sm_90a).  Phases,
-in order; any failure raises and the run exits non-zero:
+checkout (one nvcc per source, all started together, sm_90a) and the
+port's native C++ library (g++).  Before its first import of the port it
+installs an import finder that refuses ``jax``, ``jaxlib`` and the JAX
+package ``ema_tpu``: the port stands on its own.  Phases, in order; any
+failure raises and the run exits non-zero:
 
-  1. setup: torch/CUDA versions, the card, the kernel build time and what
-     ptxas says of each kernel (registers, spills);
+  1. setup: torch/CUDA versions, the card, the build times of the native
+     library and the kernels, and what ptxas says of each kernel
+     (registers, spills);
   2. kernel vs plain: each kernel (sw_banded, sw_banded16,
      sw_banded_packed, sw_batch) against its plain PyTorch version on the
      card, bit-exact on all four outputs, at the SW_CHUNK chained shape,
-     the mate-rescue shape and edge sets (read lengths 0..1023, N runs,
-     negative win_lo, windows past the text end, corridors up to 4096),
-     with kernel and plain times;
+     the mate-rescue shape, a mixed-width set drawn as the pipeline draws
+     its corridors (most near 50, a tail to 250, a few past 1024 in one
+     call) and edge sets (read lengths 0..1023, N runs, negative win_lo,
+     windows past the text end, corridors up to 4096), with kernel and
+     plain times and each kernel's bound (the least time the card could
+     take for the same cells);
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -37,15 +44,18 @@ in order; any failure raises and the run exits non-zero:
      truth; the default run also gives the stage split and re-scores one
      real chunk with the native host scorer, banded16 and tier64 must
      give the default's SAM records, and scan re-scores one real chunk
-     with its plain version on the card; then device EM on and off in
+     with its plain version on the card; every SW kernel timed on the
+     default run's recorded chained and rescue calls (cells, ms, Gcell/s,
+     share of the bound); then device EM on and off in
      turns (on, off, off, on) with pairs/s, the em stage and 0 differing
      records, one torch.profiler pass (device idle share, and whether the
      EM stream overlaps the SW stream), and one pass with device locate
      that must give the default's records;
   7. long reads: two pairs of 600 bp reads (mate-rescue corridors past
      1024 lanes) aligned on the card must give the CPU path's SAM;
-  8. CLI: ``python -m ema_tpu_torch.cli align`` on a small input must
-     give the library path's SAM records;
+  8. CLI: the port's ``align`` with no ``--device`` (the card is the
+     default) on a small input must give the SAM records of
+     ``Aligner(idx, cfg)``, whose default device is the card too;
   9. bench tool: ema_tpu_torch.tools.bench_sw in this process at its full
      shape (B = 16,384, m = 100, n = 192, W = 128): Gcell/s of each SW
      kernel and plain version, every variant bit-exact, packed against
@@ -65,17 +75,16 @@ in order; any failure raises and the run exits non-zero:
      device and host EM, with pairs/s of both, and ``index --shard-bases``
      then ``align -s`` and ``align -x`` through the CLI give the library
      path's records;
- 12. checks: synchronise, and no jax was imported.
+ 12. checks: synchronise, and neither jax nor ema_tpu was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before it the per-kernel JSON record; the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX.
+is {"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of
+the JAX package.
 """
 
 from __future__ import annotations
 
-import functools
-import importlib.util
 import json
 import os
 import re
@@ -110,15 +119,39 @@ MAIN_KERNEL = {"banded": "sw_banded", "banded16": "sw_banded16",
                "tier64": "sw_banded_packed", "scan": "sw_batch"}
 
 
-@functools.cache
+REFUSED_IMPORTS = ("jax", "jaxlib", "ema_tpu")
+
+
+class RefuseReferenceImports:
+    """A ``sys.meta_path`` finder that fails any import of jax, jaxlib or
+    the JAX package ``ema_tpu`` (the name itself or a submodule; not
+    ``ema_tpu_torch``), so that a port module reaching for the reference
+    fails loudly instead of passing unnoticed."""
+
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED_IMPORTS:
+            raise ImportError(f"import of {name!r} refused: the port "
+                              "imports nothing of jax or ema_tpu")
+        return None
+
+
+def refuse_reference_imports() -> None:
+    """Install ``RefuseReferenceImports`` ahead of every other finder."""
+    if not any(isinstance(f, RefuseReferenceImports) for f in sys.meta_path):
+        sys.meta_path.insert(0, RefuseReferenceImports())
+
+
+def reference_modules_loaded() -> list:
+    """The modules of jax, jaxlib or ema_tpu in ``sys.modules``."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in REFUSED_IMPORTS)
+
+
 def simulate():
-    """The repo's read simulator, tests/simulate.py, loaded by path (a
-    ``tests`` package installed elsewhere may shadow ``tests.simulate``)."""
-    spec = importlib.util.spec_from_file_location(
-        "ema_simulate", os.path.join(ROOT, "tests", "simulate.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    """The port's copy of the repo's read simulator (tests/simulate.py,
+    which imports the JAX package's barcode codec)."""
+    from ema_tpu_torch.tools import simulate as sim
+    return sim
 
 
 def log(msg: str) -> None:
@@ -175,9 +208,9 @@ def golden_sam(device, sw_impl=None, *, device_em=None, seed_impl=None,
     ``device`` with the configuration of tests/test_golden.py, the scorer
     ``sw_impl``, ``RunConfig(device_em=...)``, the seeder ``seeding``
     (smem when None) and ``seed_impl``."""
-    from ema_tpu import config
-    from ema_tpu.core.samout import write_sam_header
-    from ema_tpu.index import build_index
+    from ema_tpu_torch import config
+    from ema_tpu_torch.core.samout import write_sam_header
+    from ema_tpu_torch.index import build_index
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
 
@@ -292,6 +325,25 @@ def sw_cases(dev, seed=7):
         dev, owners=owners[odd], win_lo=win_lo[odd], win_len=win_len[odd],
         wl=wl[odd]))
 
+    # mixed: corridors drawn as the pipeline draws them in one call: most
+    # at a chain's 2 x 24 + 2 plus a small diagonal spread, a tail to 250,
+    # and a few rescue-like ones past 1024 lanes
+    Nm = 16384
+    owners_m = rng.integers(0, R, Nm).astype(np.int32)
+    wl_m = (50 + rng.geometric(0.35, Nm) - 1).astype(np.int32)
+    tail = rng.random(Nm) < 0.06
+    wl_m[tail] = rng.integers(64, 251, int(tail.sum()))
+    wl_m[rng.choice(Nm, 24, replace=False)] = rng.integers(1025, 1301, 24)
+    wl_m[:3] = [1, 32, 33]
+    lo_m = (pos[owners_m] - 24 + rng.integers(-20, 21, Nm)).astype(np.int64)
+    len_m = (olens[owners_m] + wl_m + 48).astype(np.int32)
+    cases["mixed"] = dict(base, **_to_dev(
+        dev, owners=owners_m, win_lo=lo_m, win_len=len_m, wl=wl_m))
+    small_m = wl_m <= 64
+    cases["mixed_w64"] = dict(base, **_to_dev(
+        dev, owners=owners_m[small_m], win_lo=lo_m[small_m],
+        win_len=len_m[small_m], wl=wl_m[small_m]))
+
     # rescue: the corridor is the whole insert window, wl = win_len = 683
     Nr = 8192
     owners = rng.integers(0, R, Nr).astype(np.int32)
@@ -326,6 +378,11 @@ def sw_cases(dev, seed=7):
     oriented2, pos2 = _reads_from_text(rng, text, R2, L2, lens2)
     for cap in (32, 64, 128, 256, 512, 768, 1024):
         cases[f"edge_w{cap}"] = edge_set(oriented2, lens2, pos2, cap, 1024)
+    # the same at the size from which sw_banded's narrow classes take
+    # part-warp segments (8 and 16 threads a candidate)
+    for cap in (32, 56, 64, 96):
+        cases[f"edge_w{cap}_n{LARGE_CLASS}"] = edge_set(
+            oriented2, lens2, pos2, cap, LARGE_CLASS)
     # long reads (500..1023 bp) with corridors past one warp
     R3, L3 = 128, 1023
     lens3 = rng.integers(500, L3 + 1, R3).astype(np.int32)
@@ -336,13 +393,17 @@ def sw_cases(dev, seed=7):
     return cases
 
 
+# kLargeClass of csrc/sw_banded.cu: from this many candidates a class of at
+# most 96 lanes takes part-warp segments
+LARGE_CLASS = 6144
 # the cases each kernel is held to (the packed tier takes wl <= 64)
 KERNEL_CASES = {
     "sw_banded": None, "sw_banded16": None, "sw_batch": None,
-    "sw_banded_packed": ("chained_w64", "odd_w64", "edge_w32", "edge_w64"),
+    "sw_banded_packed": ("chained_w64", "odd_w64", "mixed_w64", "edge_w32",
+                         "edge_w64", f"edge_w56_n{LARGE_CLASS}"),
 }
 # the pipeline shape each kernel is timed at, then the extra shapes
-TIMED = {"sw_banded": ("chained", "rescue"),
+TIMED = {"sw_banded": ("chained", "rescue", "mixed"),
          "sw_banded16": ("chained", "rescue"),
          "sw_banded_packed": ("chained_w64",),
          "sw_batch": ("chained", "rescue")}
@@ -375,9 +436,34 @@ def _cells(c, scorer) -> int:
     return int((rl * width.long()).sum())
 
 
-def phase_kernel(dev, card: str) -> dict:
-    from ema_tpu_torch.ops.sw import gather_score, gather_score_ref
+def _bound(name, c, scorer, rate) -> tuple:
+    """(bound ms, bound_by, cells) of kernel ``name`` on the inputs ``c``:
+    the cells these inputs need times the fewest integer instructions a
+    cell admits (tools/bench_sw.MIN_INSTR_PER_CELL) over the card's int32
+    instruction rate, against the bytes that must move (each candidate's
+    read row and window, its index entries, its output row) over the
+    memory rate."""
+    from ema_tpu_torch.tools import bench_sw
 
+    cells = _cells(c, scorer)
+    N = c["owners"].shape[0]
+    rl = c["olens"][c["owners"].long()].long()
+    n_bytes = int(rl.sum()) + int(c["win_len"].long().sum()) + N * (20 + 16)
+    ms, by = bench_sw.bound_ms(cells * bench_sw.MIN_INSTR_PER_CELL[name],
+                               n_bytes, rate)
+    return ms, by, cells
+
+
+def phase_kernel(dev, card: str) -> dict:
+    from ema_tpu_torch.ops.sw import (LAUNCHES, gather_score,
+                                      gather_score_ref, reset_counts)
+    from ema_tpu_torch.tools import bench_sw
+
+    rate = bench_sw.int32_instr_per_s(dev)
+    log(f"int32 instruction rate of the card (SMs x max SM clock x "
+        f"{bench_sw.INT32_OPS_PER_CLOCK_PER_SM}): {rate / 1e12} T "
+        f"instructions/s; minimum instructions a cell (hand count, "
+        f"tools/bench_sw.py): {bench_sw.MIN_INSTR_PER_CELL}")
     cases = sw_cases(dev)
     stats = {}
     for name, (scorer, _, _) in KERNELS.items():
@@ -402,16 +488,23 @@ def phase_kernel(dev, card: str) -> dict:
         st = {"max_abs_err": max_err}
         for cname in TIMED[name]:
             c = cases[cname]
-            cells = _cells(c, scorer)
+            bound, by, cells = _bound(name, c, scorer, rate)
             reps = 20 if cname.startswith("chained") else 10
+            reset_counts()
+            _call(gather_score, c, scorer)
+            per_call = LAUNCHES[name].value
             ms = _time_ms(lambda: _call(gather_score, c, scorer), reps)
             plain_ms = _time_ms(lambda: _call(gather_score_ref, c, scorer),
                                 2)
             st.setdefault("ms", ms)
             st.setdefault("plain_ms", plain_ms)
+            st.setdefault("bound_ms", bound)
+            st.setdefault("bound_by", by)
             log(f"{name} [{cname}] N={c['owners'].shape[0]}: kernel {ms} "
-                f"ms ({cells / ms / 1e6} Gcell/s), plain {plain_ms} ms "
-                f"({cells / plain_ms / 1e6} Gcell/s), cells={cells}, "
+                f"ms in {per_call} launches ({cells / ms / 1e6} Gcell/s), "
+                f"plain {plain_ms} ms ({cells / plain_ms / 1e6} Gcell/s), "
+                f"cells={cells}, bound {bound} ms by {by} = "
+                f"{bound / ms} of the kernel's time, library call: none, "
                 f"card: {card}")
         stats[name] = st
     # the packed tier's shape through the one-warp banded kernel
@@ -462,31 +555,35 @@ def phase_golden(dev) -> None:
 
 
 def _recording(aligner, captured):
-    """Wrap aligner._score_windows to keep its first call's inputs and
-    output (one real chunk of the main path)."""
+    """Wrap aligner._score_windows to keep the inputs and output of its
+    first chained call and of its first rescue call (the corridor is the
+    whole window there): one real chunk of the main path each."""
     score_windows = aligner._score_windows
 
     def recording(oriented_dev, olens_dev, owners, win_lo, win_len,
                   wl=None, **kw):
         out = score_windows(oriented_dev, olens_dev, owners, win_lo,
                             win_len, wl=wl, **kw)
-        if not captured:
-            captured.update(oriented_dev=oriented_dev, olens_dev=olens_dev,
-                            owners=owners, win_lo=win_lo, win_len=win_len,
-                            wl=wl, out=out)
+        kind = ("rescue" if wl is None or np.array_equal(wl, win_len)
+                else "chained")
+        # chunks score on worker threads: one atomic setdefault each
+        captured.setdefault(kind, dict(
+            oriented_dev=oriented_dev, olens_dev=olens_dev, owners=owners,
+            win_lo=win_lo, win_len=win_len, wl=wl, out=out))
         return out
     return recording
 
 
 def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
               label=None, cfg_kw=None, seed_impl=None):
-    """One configuration on the bench world: a warm-up pass (recording one
-    SW call), then 3 timed passes; returns (lines, stats, captured).
+    """One configuration on the bench world: a warm-up pass (recording
+    one chained and one rescue SW call), then 3 timed passes; returns
+    (lines, stats, captured).
     stats: launches of the scorer's kernel over the 4 passes, pairs/s of
     the best pass, the pass times and (``metrics``) each stage's
     thread-seconds per timed pass."""
-    from ema_tpu import config
-    from ema_tpu.utils.metrics import Metrics
+    from ema_tpu_torch import config
+    from ema_tpu_torch.utils.metrics import Metrics
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
     from ema_tpu_torch.ops.sw import reset_counts
@@ -538,7 +635,8 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
           f"main path under {label} never launched {kernel}")
     check(n >= n_pairs and ok / n >= 0.98,
           f"accuracy gate failed under {label} ({ok}/{n})")
-    check(bool(captured), "no SW call was recorded")
+    check("chained" in captured and "rescue" in captured,
+          f"SW calls recorded: {sorted(captured)}, not chained and rescue")
     return lines, dict(launches=launches[kernel], pairs_per_s=n_pairs / best,
                        passes=passes, stages=stages,
                        device_em=aligner.cfg.device_em), captured
@@ -547,12 +645,13 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
 def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
     """The bench world under each scorer; returns (stats by scorer, the
     default run's SAM lines)."""
-    from ema_tpu import native
+    from ema_tpu_torch import native
     from ema_tpu_torch.ops.sw import gather_score_ref
 
     stats = {}
-    lines, stats["banded"], c = _main_run(dev, card, idx, pairs, truth,
-                                          "banded", metrics=True)
+    lines, stats["banded"], recorded = _main_run(
+        dev, card, idx, pairs, truth, "banded", metrics=True)
+    c = recorded["chained"]
     wl = np.maximum(c["wl"] if c["wl"] is not None else c["win_len"], 1)
     nat = native.sw_banded_native(
         c["oriented_dev"].cpu().numpy(), c["olens_dev"].cpu().numpy(),
@@ -572,6 +671,7 @@ def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
         check(got == lines, f"{sw_impl} SAM records differ from banded")
 
     _, stats["scan"], c = _main_run(dev, card, idx, pairs, truth, "scan")
+    c = c["chained"]
     text = torch.from_numpy(idx.text).to(dev)
 
     def put(a, dtype):
@@ -587,7 +687,124 @@ def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
     log(f"plain scan re-score of one chunk on the card: "
         f"{len(c['owners'])} candidates, identical={same}")
     check(same, "sw_batch output differs from sw_score_batch_ref")
-    return stats, lines
+    return stats, lines, recorded
+
+
+def phase_recorded(dev, card: str, idx, recorded) -> None:
+    """Every SW kernel on the default run's recorded chained and rescue
+    calls, the shapes the pipeline really sends: cells, ms, Gcell/s and
+    the share of the bound; the banded kernels must reproduce the
+    recorded output."""
+    from ema_tpu_torch.ops.sw import (LAUNCHES, PACKED_MAX_WL, gather_score,
+                                      reset_counts)
+    from ema_tpu_torch.tools import bench_sw
+
+    rate = bench_sw.int32_instr_per_s(dev)
+    text = torch.from_numpy(idx.text).to(dev)
+    for kind in ("chained", "rescue"):
+        r = recorded[kind]
+        wl = np.maximum(r["wl"] if r["wl"] is not None else r["win_len"], 1)
+        want = np.stack([r["out"][k] for k in ("score", "qb", "qe",
+                                               "ref_end")], axis=1)
+        edges = (32, 64, 128, 256, 1024)
+        hist = {f"<={e}": int((wl <= e).sum()) for e in edges}
+        log(f"recorded {kind} call: N={wl.shape[0]}, wl min/median/mean/max "
+            f"{int(wl.min())}/{float(np.median(wl))}/{float(wl.mean())}/"
+            f"{int(wl.max())}, cumulative {hist}")
+        for name, (scorer, _, _) in KERNELS.items():
+            if scorer is None:
+                continue
+            keep = np.arange(wl.shape[0])
+            if scorer == "packed":
+                keep = np.nonzero(wl <= PACKED_MAX_WL)[0]
+                if keep.shape[0] == 0:
+                    log(f"{name} [recorded {kind}]: not applicable, every "
+                        f"corridor is wider than {PACKED_MAX_WL}")
+                    continue
+            c = dict(text=text, oriented=r["oriented_dev"],
+                     olens=r["olens_dev"], **_to_dev(
+                         dev, owners=r["owners"][keep].astype(np.int32),
+                         win_lo=r["win_lo"][keep].astype(np.int64),
+                         win_len=r["win_len"][keep].astype(np.int32),
+                         wl=wl[keep].astype(np.int32)))
+            reset_counts()
+            got = _call(gather_score, c, scorer).cpu().numpy()
+            per_call = LAUNCHES[name].value
+            if scorer != "scan":          # scan scores the whole window
+                check(np.array_equal(got, want[keep]),
+                      f"{name} differs from the recorded {kind} output")
+            bound, by, cells = _bound(name, c, scorer, rate)
+            ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
+            log(f"{name} [recorded {kind}] N={keep.shape[0]}: kernel {ms} "
+                f"ms in {per_call} launches ({cells / ms / 1e6} Gcell/s), "
+                f"cells={cells}, bound {bound} ms by {by} = {bound / ms} "
+                f"of the kernel's time, card: {card}")
+    _phase_class_rules(dev, card, text, recorded["chained"], rate)
+
+
+def _phase_class_rules(dev, card: str, text, r, rate) -> None:
+    """sw_banded's two launch rules, on the recorded chained call with
+    other corridors.  Real reads with small indels widen a chain's
+    corridor past the simulator's 50: the call is timed with wl drawn in
+    50..60 (one class, never sorted), in 50..70 (two classes; the default
+    plan against a forced sort and a forced single launch) and with a 6%
+    tail to 250 (the same three).  Then a wl = 50 call on both sides of
+    the size from which a narrow class takes part-warp segments.  Every
+    variant is held bit-exact against the plain version."""
+    from ema_tpu_torch.ops import sw
+    from ema_tpu_torch.ops.sw import gather_score, gather_score_ref
+
+    rng = np.random.default_rng(11)
+    N = r["owners"].shape[0]
+    base = dict(text=text, oriented=r["oriented_dev"], olens=r["olens_dev"])
+
+    def call_with(wl, keep=slice(None)):
+        wl = wl.astype(np.int32)
+        grow = wl - np.maximum(r["wl"][keep], 1)
+        return dict(base, **_to_dev(
+            dev, owners=r["owners"][keep].astype(np.int32),
+            win_lo=r["win_lo"][keep].astype(np.int64),
+            win_len=(r["win_len"][keep] + grow).astype(np.int32), wl=wl))
+
+    tail = rng.integers(50, 61, N)
+    far = rng.random(N) < 0.06
+    tail[far] = rng.integers(64, 251, int(far.sum()))
+    sets = {"wl 50..60": rng.integers(50, 61, N),
+            "wl 50..70": rng.integers(50, 71, N),
+            "wl 50..60, 6% to 250": tail}
+    default = sw.SORT_PAYS_SLOTS
+    try:
+        for label, wl in sets.items():
+            c = call_with(wl)
+            want = _call(gather_score_ref, c, "banded")
+            row = []
+            for plan, pays in (("default", default), ("sorted", 0),
+                               ("one launch", 1 << 62)):
+                sw.SORT_PAYS_SLOTS = pays
+                sw.reset_counts()
+                got = _call(gather_score, c, "banded")
+                per_call = sw.LAUNCHES["sw_banded"].value
+                check(torch.equal(got, want), f"sw_banded [{label}, {plan}] "
+                      f"differs from the plain version")
+                ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
+                row.append(f"{plan} {ms} ms in {per_call} launches")
+            bound, by, cells = _bound("sw_banded", c, "banded", rate)
+            log(f"sw_banded [recorded chained, {label}] N={N}: "
+                + "; ".join(row) + f"; cells={cells}, bound {bound} ms by "
+                f"{by}, card: {card}")
+    finally:
+        sw.SORT_PAYS_SLOTS = default
+    for n in (2048, 4096, LARGE_CLASS - 1, LARGE_CLASS, 8192):
+        keep = np.arange(min(n, N))
+        c = call_with(np.full(keep.shape[0], 50), keep)
+        check(torch.equal(_call(gather_score, c, "banded"),
+                          _call(gather_score_ref, c, "banded")),
+              f"sw_banded [wl = 50, N={n}] differs from the plain version")
+        bound, by, cells = _bound("sw_banded", c, "banded", rate)
+        ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
+        log(f"sw_banded [wl = 50] N={keep.shape[0]}: kernel {ms} ms "
+            f"({cells / ms / 1e6} Gcell/s), bound {bound} ms by {by} = "
+            f"{bound / ms} of the kernel's time, card: {card}")
 
 
 def phase_device_em(dev, card: str, idx, pairs, truth,
@@ -667,7 +884,7 @@ def phase_profile(dev, card: str, idx, pairs) -> float:
     stream ran while the SW kernels' stream was busy."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ema_tpu import config
+    from ema_tpu_torch import config
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
 
@@ -750,8 +967,8 @@ def _host_ms(fn, reps: int = 3) -> float:
 def phase_fm(dev, card: str, genome, idx, pairs) -> None:
     """The torch FM ops on the card against the native host ops, bit for
     bit, on one bench-world chunk, at sa_rate 2 (the bench index) and 4."""
-    from ema_tpu import config, native
-    from ema_tpu.index import build_index
+    from ema_tpu_torch import config, native
+    from ema_tpu_torch.index import build_index
     from ema_tpu_torch.core.pipeline import _compact_seed_hits, locate_rows
     from ema_tpu_torch.index import fm
 
@@ -837,7 +1054,7 @@ def deep_em_group(n_cand: int = 80, n_anchor: int = 40, bc: int = 9):
     candidates per mate (past EM_NATIVE_C = 64): anchor pairs in one
     cloud and one pair whose candidates lie 1 Mb apart.  Returns
     (records, idents)."""
-    from ema_tpu.core.records import empty_records
+    from ema_tpu_torch.core.records import empty_records
 
     rows, idents = [], []
     for p in range(n_anchor):
@@ -867,7 +1084,7 @@ def synthetic_em_group(rng, n_pairs: int, bc: int = 42):
     tests/test_em_jax.py:_synthetic_group builds one: pairs in four
     clusters, 1-3 candidates per mate (the extra ones up to 2 Mb away),
     random strands and scores.  Returns (records, idents)."""
-    from ema_tpu.core.records import empty_records
+    from ema_tpu_torch.core.records import empty_records
 
     rows, idents = [], []
     base_positions = rng.integers(1, 5, 4).cumsum() * 100_000
@@ -894,8 +1111,8 @@ def phase_em(dev, card: str, idx, pairs) -> None:
     before their EM ran), and on synthetic batches of multimapping groups
     for a 10x and a many-clouds (tru) platform; each batch also holds a
     group deeper than 64 candidates."""
-    from ema_tpu import config
-    from ema_tpu.core import groups
+    from ema_tpu_torch import config
+    from ema_tpu_torch.core import groups
     from ema_tpu_torch.core import em
     from ema_tpu_torch.core import pipeline as tp
     from ema_tpu_torch.core.batch import ReadBatch
@@ -1001,8 +1218,8 @@ def long_read_world():
 
 
 def phase_long_reads(dev) -> None:
-    from ema_tpu import config
-    from ema_tpu.index import build_index
+    from ema_tpu_torch import config
+    from ema_tpu_torch.index import build_index
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
     from ema_tpu_torch.ops.sw import reset_counts
@@ -1037,8 +1254,8 @@ def phase_long_reads(dev) -> None:
 
 
 def phase_cli(dev) -> None:
-    from ema_tpu import config
-    from ema_tpu.index import build_index
+    from ema_tpu_torch import config
+    from ema_tpu_torch.index import build_index
     from ema_tpu_torch.core.pipeline import Aligner
     from ema_tpu_torch.io import read_special_fastq
 
@@ -1053,15 +1270,15 @@ def phase_cli(dev) -> None:
             for row in zip(bc_strs, ids, s1, q1, s2, q2):
                 f.write(" ".join(row) + "\n")
         out = os.path.join(tmp, "out.sam")
-        r = subprocess.run(
-            [sys.executable, "-m", "ema_tpu_torch.cli", "align", "-r", ref,
-             "-s", bucket, "-o", out, "--device", str(dev)],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        check(r.returncode == 0, f"CLI align failed:\n{r.stderr}")
+        # no --device: the card is the CLI's default
+        _cli("align", "-r", ref, "-s", bucket, "-o", out)
         with open(out) as f:
             cli_lines = [ln for ln in f if not ln.startswith("@")]
-        lib_lines = Aligner(build_index(contigs), config.RunConfig(),
-                            device=dev).align_batch_to_sam(
+        # no device=: the card is the Aligner's default too
+        lib_aligner = Aligner(build_index(contigs), config.RunConfig())
+        check(lib_aligner.device == dev, f"Aligner's default device is "
+                                         f"{lib_aligner.device}, not {dev}")
+        lib_lines = lib_aligner.align_batch_to_sam(
             read_special_fastq(bucket))
     log(f"CLI: {len(cli_lines)} records, identical to the library "
         f"path={cli_lines == lib_lines}")
@@ -1112,10 +1329,25 @@ def phase_bench_sw(dev, card: str) -> dict:
           and art["packed_bit_exact_vs_wl_masked_ref"],
           "bench_sw variants disagree")
     check(launches > 0, "the bench tool never launched alu_probe")
+    # the probe's bound at its K_CHECK run: the chain steps times the two
+    # instructions ptxas emits for a step, over the card's int32 rate
+    steps = probe.probe_ops(art["probe_elements"], bench_sw.K_CHECK,
+                            probe.UNROLL_TPU) // 3
+    bound, by = bench_sw.bound_ms(
+        steps * bench_sw.PROBE_INSTR_PER_STEP, 8 * art["probe_elements"],
+        art["int32_tops_theoretical"] * 1e12)
+    log(f"alu_probe at K={bench_sw.K_CHECK}: kernel "
+        f"{art['alu_k_check_ms']} ms, bound {bound} ms by {by} "
+        f"({steps} steps x {bench_sw.PROBE_INSTR_PER_STEP} instructions) = "
+        f"{bound / art['alu_k_check_ms']} of the kernel's time; measured "
+        f"instruction rate {art['alu_int32_instr_tera_per_s']} T/s against "
+        f"the theoretical {art['int32_tops_theoretical']}; library call: "
+        f"none; card: {card}")
     return dict(launches=launches,
                 max_abs_err=max(err, art["alu_max_abs_err"],
                                 art["dpx_max_abs_err"]),
-                ms=art["alu_k_check_ms"], plain_ms=art["alu_probe_plain_ms"])
+                ms=art["alu_k_check_ms"], plain_ms=art["alu_probe_plain_ms"],
+                bound_ms=bound, bound_by=by)
 
 
 def _write_fasta(path, contigs) -> None:
@@ -1138,9 +1370,18 @@ def _norm(lines) -> list:
     return sorted(re.sub(r"\tMI:i:\d+", "\tMI:i:*", ln) for ln in lines)
 
 
+# the port's CLI as ``python -m ema_tpu_torch.cli`` runs it, behind this
+# script's import finder
+GUARDED_CLI = ("import sys; import chip_smoke; "
+               "chip_smoke.refuse_reference_imports(); "
+               "from ema_tpu_torch import cli; "
+               "sys.exit(cli.main(sys.argv[1:]))")
+
+
 def _cli(*args, stdin=None) -> str:
-    """``python -m ema_tpu_torch.cli`` in a subprocess; its stderr."""
-    r = subprocess.run([sys.executable, "-m", "ema_tpu_torch.cli", *args],
+    """The port's CLI in a subprocess, with jax and ema_tpu refused; its
+    stderr."""
+    r = subprocess.run([sys.executable, "-c", GUARDED_CLI, *args],
                        cwd=ROOT, stdin=stdin, capture_output=True,
                        text=True, timeout=900)
     check(r.returncode == 0, f"CLI {args[0]} failed:\n{r.stderr[-4000:]}")
@@ -1168,10 +1409,10 @@ def phase_x(dev, card: str, genome, pairs, truth, bc_strs) -> dict:
     """The documented workflow on the bench world: count, preproc -n 500
     and align -x over the buckets, each mode against the others and
     against the library path."""
-    from ema_tpu import config
-    from ema_tpu.cli import _load_or_build_index
-    from ema_tpu.core.samout import write_sam_header
-    from ema_tpu.utils.samdiff import diff_sams
+    from ema_tpu_torch import config
+    from ema_tpu_torch.cli import _load_or_build_index
+    from ema_tpu_torch.core.samout import write_sam_header
+    from ema_tpu_torch.utils.samdiff import diff_sams
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
     from ema_tpu_torch.io import read_special_rows
@@ -1339,8 +1580,8 @@ def sharded_world():
 def phase_sharded(dev, card: str) -> dict:
     """Two index shards against one index, in the library and through the
     CLI."""
-    from ema_tpu import config
-    from ema_tpu.index import build_index, build_index_sharded
+    from ema_tpu_torch import config
+    from ema_tpu_torch.index import build_index, build_index_sharded
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner, ShardedAligner
     from ema_tpu_torch.io import read_special_fastq
@@ -1418,6 +1659,8 @@ def main() -> int:
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs a CUDA card\n")
         return 1
+    refuse_reference_imports()
+    from ema_tpu_torch import native
     from ema_tpu_torch.ops import _build
     from ema_tpu_torch.utils.backend import gpu_info, resolve_device
 
@@ -1426,6 +1669,10 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(dev)}"
         f", card: {card}")
+    t0 = time.time()
+    native.get_lib()
+    log(f"native library {native._so_path().name} built/loaded with g++ in "
+        f"{time.time() - t0} s")
     t0 = time.time()
     _build.load_all()
     log(f"kernels {', '.join(KERNELS)} built/loaded in {time.time() - t0} s")
@@ -1445,8 +1692,8 @@ def main() -> int:
         log(f"phase {fn.__name__}: {time.time() - t0} s")
         return out
 
+    from ema_tpu_torch.index import build_index
     kstats = phase(phase_kernel, dev, card)
-    from ema_tpu.index import build_index
     t0 = time.time()
     genome, pairs, truth, bc_strs = bench_world()
     idx = build_index({"chr1": genome})
@@ -1455,8 +1702,10 @@ def main() -> int:
     phase(phase_fm, dev, card, genome, idx, pairs)
     phase(phase_em, dev, card, idx, pairs)
     phase(phase_golden, dev)
-    main_stats, default_lines = phase(phase_main_path, dev, card, idx, pairs,
-                                      truth)
+    main_stats, default_lines, recorded = phase(
+        phase_main_path, dev, card, idx, pairs, truth)
+    phase(phase_recorded, dev, card, idx, recorded)
+    del recorded
     phase(phase_device_em, dev, card, idx, pairs, truth, default_lines)
     phase(phase_profile, dev, card, idx, pairs)
     phase(phase_seed_device, dev, card, idx, pairs, truth, default_lines)
@@ -1467,7 +1716,8 @@ def main() -> int:
     phase(phase_sharded, dev, card)
 
     torch.cuda.synchronize()
-    check("jax" not in sys.modules, "jax was imported")
+    loaded = reference_modules_loaded()
+    check(not loaded, f"modules of jax or ema_tpu were imported: {loaded}")
     log(f"all phases: {time.time() - t_start} s")
     launches = {k: main_stats[s]["launches"] for s, k in MAIN_KERNEL.items()}
     launches["alu_probe"] = kstats["alu_probe"]["launches"]
@@ -1478,7 +1728,12 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": kstats[name]["max_abs_err"],
-        "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"]}
+        "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"],
+        "bound_ms": kstats[name]["bound_ms"],
+        "bound_by": kstats[name]["bound_by"],
+        # no PyTorch call computes a banded affine-gap Smith-Waterman with
+        # these tie rules, or the probe's chains
+        "library_ms": None}
         for name, (_, source, replaces) in KERNELS.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

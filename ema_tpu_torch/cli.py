@@ -6,7 +6,7 @@ on a torch device.
         [-t T] [-p] prefix.ema-ncnt... < inter.fq
     python -m ema_tpu_torch.cli index   -r ref.fa [-o OUT] [--shard-bases N]
         [-j N] [--from-bwa]
-    python -m ema_tpu_torch.cli align   -r ref.fa --device cuda
+    python -m ema_tpu_torch.cli align   -r ref.fa [--device cuda|cpu]
         (-s bucket | -1 r1.fq [-2 r2.fq] | -x bucket...) [-o out.sam]
         [-R RG] [-p platform] [-d] [-i idx] [-t T] [-j N] [--no-coalesce]
         [--manifest run.jsonl] [--sort] [--shard S --nshards N] [--nobc]
@@ -15,20 +15,20 @@ on a torch device.
         [--fail-under PCT]
     python -m ema_tpu_torch.cli help
 
-``align`` follows ema_tpu/cli.py:288-561 and reuses its jax-free
-``_load_or_build_index``: ``-x`` coalesces small buckets into shared
-batches (``--no-coalesce -j N`` aligns buckets on N threads instead),
+``align`` follows ema_tpu/cli.py:288-561: ``-x`` coalesces small buckets
+into shared batches (``--no-coalesce -j N`` aligns buckets on N threads
+instead),
 with per-bucket MI namespaces, parts written atomically under
 ``<out>.parts``, ``--manifest`` resume, ``--sort`` (per-part sort and a
 streaming merge) and ``--shard/--nshards``; a contig-sharded index runs
-on a ``ShardedAligner``.  The device is always named: ``--device cuda``
-runs the CUDA kernels and fails if there is no card; ``--device cpu``
-runs their plain PyTorch versions.  ``--profile DIR`` writes a
+on a ``ShardedAligner``.  ``--device`` defaults to ``cuda``, which runs
+the CUDA kernels and exits 1 if there is no card; ``--device cpu`` runs
+their plain PyTorch versions.  ``--profile DIR`` writes a
 torch.profiler trace, EMA_TPU_STAGE_TIMERS=1 publishes the stage timers,
 and EMA_TPU_SEED_IMPL and EMA_TPU_SW_IMPL choose where greedy seeding and
 locate run and which SW kernel scores.  ``count``, ``preproc``,
-``index`` and ``samdiff`` delegate to the shared host code of
-``ema_tpu.cli``.  Multi-host runs (``--coordinator``, ``--nprocs``,
+``index`` and ``samdiff`` follow ema_tpu/cli.py:171-286 on the port's own
+host modules.  Multi-host runs (``--coordinator``, ``--nprocs``,
 ``--procid``) are not ported yet and are refused.
 """
 
@@ -37,13 +37,63 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import shutil
 import sys
 import time
 
-from ema_tpu import config
+from ema_tpu_torch import config
 from ema_tpu_torch import __version__
 
 MULTI_HOST_FLAGS = ("--coordinator", "--nprocs", "--procid")
+
+
+def _index_path(ref: str) -> str:
+    return ref + ".emaidx.npz"
+
+
+def _sharded_index_path(ref: str) -> str:
+    return ref + ".emaidx.d"
+
+
+def _load_or_build_index(ref: str):
+    """The index saved beside ``ref`` (single or sharded), rebuilt and
+    saved if it is missing or unreadable (ema_tpu/cli.py:32-68).  The
+    files are the JAX package's: either package loads the other's."""
+    from ema_tpu_torch.index import (MAX_SHARD_BASES, ReferenceIndex,
+                                     ShardedIndex, build_and_save_sharded,
+                                     build_index)
+    from ema_tpu_torch.index.build import parse_fasta
+    p = _index_path(ref)
+    if os.path.exists(p):
+        try:
+            return ReferenceIndex.load(p)
+        except Exception as e:      # stale format / truncated artifact
+            sys.stderr.write(f"ema_tpu_torch: unusable index at {p} "
+                             f"({e!r}); rebuilding\n")
+            os.unlink(p)
+    pd = _sharded_index_path(ref)
+    if os.path.isdir(pd):
+        try:
+            idx = ShardedIndex.load(pd)
+            if idx.n_shards == 0:
+                raise ValueError("no shard files")
+            return idx
+        except Exception as e:
+            sys.stderr.write(f"ema_tpu_torch: unusable index at {pd} "
+                             f"({e!r}); rebuilding\n")
+            shutil.rmtree(pd)
+    sys.stderr.write(f"ema_tpu_torch: building index for {ref}...\n")
+    contigs = parse_fasta(ref)
+    total = sum(a.shape[0] for a in contigs.values())
+    if total > MAX_SHARD_BASES:      # ~1 Gbp/shard cap, e.g. full GRCh38
+        # n_workers=1: align may already hold a CUDA context and worker
+        # threads, which fork() must not copy; run `index -r ref -j N`
+        # beforehand for the parallel build
+        idx = build_and_save_sharded(contigs, pd, n_workers=1)
+    else:
+        idx = build_index(contigs)
+        idx.save(p)
+    return idx
 
 
 def _unescape_rg(rg: str) -> str:
@@ -198,8 +248,9 @@ def _align(rest) -> int:
     ap.add_argument("--nobc", action="store_true",
                     help="no-barcode mode: plain paired alignment, no "
                          "linked-read tags")
-    ap.add_argument("--device", required=True,
-                    help="torch device: cuda, cuda:N or cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda (the default; exits 1 where "
+                         "there is no card), cuda:N or cpu")
     ap.add_argument("--device-em", action="store_true",
                     help="run the cloud-EM iterations on the device")
     ap.add_argument("--seeding", choices=("greedy", "smem"), default=None,
@@ -238,10 +289,9 @@ def _align(rest) -> int:
         sys.stderr.write(f"error: {e}\n")
         return 1
 
-    from ema_tpu.cli import _load_or_build_index
-    from ema_tpu.core.samout import write_sam_header
-    from ema_tpu.index import ShardedIndex
-    from ema_tpu.utils.metrics import Metrics
+    from ema_tpu_torch.core.samout import write_sam_header
+    from ema_tpu_torch.index import ShardedIndex
+    from ema_tpu_torch.utils.metrics import Metrics
     from ema_tpu_torch import io as io_mod
     from ema_tpu_torch.core.pipeline import Aligner, ShardedAligner
     from ema_tpu_torch.parallel.distrib import sort_sam_lines
@@ -331,7 +381,7 @@ def _align_buckets(a, aligner, idx, header, met, align_one_input, is_hap,
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
-    from ema_tpu.utils.manifest import RunManifest
+    from ema_tpu_torch.utils.manifest import RunManifest
     from ema_tpu_torch.parallel.distrib import (buckets_for_host,
                                                 merge_sorted_streams)
 
@@ -397,6 +447,100 @@ def _align_buckets(a, aligner, idx, header, met, align_one_input, is_hap,
             out.close()
 
 
+def _count(rest) -> int:
+    ap = argparse.ArgumentParser(prog="ema_tpu_torch count", add_help=False)
+    ap.add_argument("-w", dest="wl")
+    ap.add_argument("-o", dest="out", required=True)
+    ap.add_argument("-p", dest="haplotag", action="store_true")
+    a = ap.parse_args(rest)
+    if not a.wl and not a.haplotag:
+        sys.stderr.write("error: specify barcode whitelist with -w\n")
+        return 1
+    from ema_tpu_torch.preproc.count import count
+    stats = count(a.wl, a.out, sys.stdin.buffer, is_haplotag=a.haplotag)
+    sys.stderr.write(f":: Reads with OK barcode: {stats['nice']} out of "
+                     f"{stats['total']}\n:: Ignored {stats['ignored']} "
+                     "reads\n")
+    return 0
+
+
+def _preproc(rest) -> int:
+    if _refuse_multi_host(rest):
+        return 1
+    ap = argparse.ArgumentParser(prog="ema_tpu_torch preproc",
+                                 add_help=False)
+    ap.add_argument("-w", dest="wl")
+    ap.add_argument("-n", dest="nbuckets", type=int, default=500)
+    ap.add_argument("-h", dest="h2", action="store_true")
+    ap.add_argument("-o", dest="out", required=True)
+    ap.add_argument("-b", dest="bx", action="store_true")
+    ap.add_argument("-t", dest="threads", type=int, default=1)
+    ap.add_argument("-p", dest="haplotag", action="store_true")
+    ap.add_argument("inputs", nargs="*")
+    a = ap.parse_args(rest)
+    if not a.wl and not a.haplotag:
+        sys.stderr.write("error: specify barcode whitelist with -w\n")
+        return 1
+    if not a.inputs:
+        sys.stderr.write("warning: no input files specified; "
+                         "nothing to do\n")
+        return 0
+    from ema_tpu_torch.preproc.correct import correct
+    stats = correct(a.wl, a.inputs, a.out, sys.stdin.buffer,
+                    do_h2=a.h2, do_bx_format=a.bx,
+                    n_buckets=a.nbuckets, is_haplotag=a.haplotag,
+                    n_threads=max(a.threads, 1))
+    sys.stderr.write(
+        f":: Stats: no change: {stats['nochange']}\n"
+        f"         no barcode: {stats['nobucket']}\n"
+        f"       H1-corrected: {stats['h1']}\n"
+        f"       H2-corrected: {stats['h2']}\n")
+    return 0
+
+
+def _index(rest) -> int:
+    ap = argparse.ArgumentParser(prog="ema_tpu_torch index", add_help=False)
+    ap.add_argument("-r", dest="ref", required=True)
+    ap.add_argument("-o", dest="out")
+    ap.add_argument("--shard-bases", type=int, default=None,
+                    help="force contig-sharded indexing with this shard "
+                         "size (auto beyond ~2^30 bases: both strands of a "
+                         "shard must fit int32 rows)")
+    ap.add_argument("-j", dest="workers", type=int, default=None,
+                    help="parallel shard-build processes (default: one "
+                         "per shard up to cpu count)")
+    ap.add_argument("--from-bwa", action="store_true",
+                    help="build from an existing `bwa index` "
+                         "(<ref>.pac/.ann/.amb) instead of parsing the "
+                         "FASTA (reference: bwa_idx_load, bwabridge.c:79)")
+    a = ap.parse_args(rest)
+    from ema_tpu_torch.index import (MAX_SHARD_BASES, build_and_save_sharded,
+                                     build_index)
+    from ema_tpu_torch.index.build import parse_fasta
+    if a.from_bwa:
+        from ema_tpu_torch.index.bwa_import import (import_bwa_index,
+                                                    load_bwa_contigs)
+        if (os.path.exists(a.ref + ".bwt") and os.path.exists(a.ref + ".sa")
+                and not a.shard_bases):
+            # complete BWA index present: consume the prebuilt FM-index
+            # directly, with no suffix-array construction (bwa_idx_load
+            # semantics, bwabridge.c:77-96)
+            import_bwa_index(a.ref).save(a.out or _index_path(a.ref))
+            return 0
+        contigs = load_bwa_contigs(a.ref)
+    else:
+        contigs = parse_fasta(a.ref)
+    total = sum(arr.shape[0] for arr in contigs.values())
+    if a.shard_bases or total > MAX_SHARD_BASES:
+        build_and_save_sharded(
+            contigs, a.out or _sharded_index_path(a.ref),
+            max_shard_bases=a.shard_bases or MAX_SHARD_BASES,
+            n_workers=a.workers)
+    else:
+        build_index(contigs).save(a.out or _index_path(a.ref))
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help", "help"):
@@ -405,13 +549,15 @@ def main(argv=None) -> int:
     mode, rest = argv[0], argv[1:]
     if mode == "align":
         return _align(rest)
-    if mode in ("count", "preproc", "index", "samdiff"):
-        # preproc's --coordinator would import jax
-        # (ema_tpu/preproc/correct.py:301-302, 356-357)
-        if mode == "preproc" and _refuse_multi_host(rest):
-            return 1
-        from ema_tpu.cli import main as ema_main
-        return ema_main([mode, *rest])
+    if mode == "count":
+        return _count(rest)
+    if mode == "preproc":
+        return _preproc(rest)
+    if mode == "index":
+        return _index(rest)
+    if mode == "samdiff":
+        from ema_tpu_torch.utils.samdiff import main as samdiff_main
+        return samdiff_main(rest)
     sys.stderr.write(f"error: unrecognized mode {mode!r} (count, preproc, "
                      "index, align, samdiff, help)\n")
     return 1

@@ -3,7 +3,7 @@
 The counterpart of ema_tpu/core/em_jax.py (the model) and of
 groups.dispatch_em_device_batch (ema_tpu/core/groups.py:736-823, the
 batching and the asynchronous readback).  Same semantics as the host EM of
-``ema_tpu.core.groups`` (the reference's align.c:431-543):
+``core/groups.py`` (the reference's align.c:431-543):
 
   - gammas over padded [G, E, C] tensors (G barcode groups, E entries =
     (pair, mate) keys, C candidates per entry);
@@ -28,10 +28,10 @@ from typing import Callable, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ema_tpu import config
-from ema_tpu.core.groups import (EM_NATIVE_C, GroupState, _pack_states,
-                                 run_em_native)
-from ema_tpu.utils.logprobs import _LOG_EPSILON
+from ema_tpu_torch import config
+from ema_tpu_torch.core.groups import (EM_NATIVE_C, GroupState,
+                                       _pack_states, run_em_native)
+from ema_tpu_torch.utils.logprobs import _LOG_EPSILON
 
 F64 = torch.float64
 

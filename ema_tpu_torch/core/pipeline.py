@@ -26,11 +26,13 @@ The Aligner takes the JAX Aligner's choices (pipeline.py:198-386):
 ``Aligner(seed_impl=...)`` or EMA_TPU_SEED_IMPL=native|device for where
 greedy seeding and locate run (``resolve_seed_impl``), and
 ``Aligner(sw_impl=...)`` or EMA_TPU_SW_IMPL / EMA_TPU_SW_TIER64 for the
-SW scorer (``resolve_sw_impl``).  With ``device="cpu"`` the device paths
+SW scorer (``resolve_sw_impl``).  The device defaults to ``"cuda"`` and
+raises where there is no card; with ``device="cpu"`` the device paths
 run their torch code on the CPU.
 
-Everything but the device code is the JAX package's jax-free host code,
-imported as it is; the numpy helpers that live in the jax-importing
+Everything but the device code is the port's own copy of the JAX
+package's host code (``native``, ``core/groups.py``, ``core/samout.py``,
+``ops/chaining.py``, ...); the numpy helpers that live in
 ema_tpu/core/pipeline.py are copied here under their names, and so are
 the hooks of the -x CLI (``cloud_id_base``, ``group_sink``,
 ``replay_sink``) and the contig-sharded ``ShardedAligner``.  Dropped from
@@ -51,12 +53,12 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from ema_tpu import config, native
-from ema_tpu.core import groups as groups_mod
-from ema_tpu.core import samout
-from ema_tpu.core import score as score_mod
-from ema_tpu.core.records import empty_records
-from ema_tpu.ops import chaining
+from ema_tpu_torch import config, native
+from ema_tpu_torch.core import groups as groups_mod
+from ema_tpu_torch.core import samout
+from ema_tpu_torch.core import score as score_mod
+from ema_tpu_torch.core.records import empty_records
+from ema_tpu_torch.ops import chaining
 from ema_tpu_torch.core.batch import CandidateSet, ReadBatch
 from ema_tpu_torch.core.em import dispatch_em_batch
 from ema_tpu_torch.index import fm
@@ -157,10 +159,11 @@ def orient_device(codes: torch.Tensor, lens: torch.Tensor):
 
 
 class Aligner:
-    """Holds the index state on ``device`` and runs batched alignment."""
+    """Holds the index state on ``device`` (the card unless the caller
+    names the CPU) and runs batched alignment."""
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
-                 device, sw_impl: Optional[str] = None,
+                 device="cuda", sw_impl: Optional[str] = None,
                  seed_impl: Optional[str] = None):
         _tune_malloc()
         self.device = resolve_device(device)
@@ -943,7 +946,7 @@ class Aligner:
         blob, coff = self._contig_blob
         rg_tag = rg_id.split()[0] if rg_id else None
 
-        from ema_tpu.utils.barcodes import decode_bc
+        from ema_tpu_torch.utils.barcodes import decode_bc
         groups = []
         for res in results:
             R = res.records
@@ -980,7 +983,7 @@ class Aligner:
         bc_len = self.cfg.platform.bc_len
         lr_tags = not self.cfg.nobc
         if lr_tags and len(R):
-            from ema_tpu.utils.barcodes import decode_bc
+            from ema_tpu_torch.utils.barcodes import decode_bc
             bc_str = decode_bc(int(R["bc"][0]), bc_len, is_hap)
         else:
             bc_str = ""
@@ -1059,7 +1062,7 @@ class ShardedAligner(Aligner):
     """
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
-                 device, sw_impl: Optional[str] = None,
+                 device="cuda", sw_impl: Optional[str] = None,
                  seed_impl: Optional[str] = None):
         if not index.shards:
             raise ValueError("ShardedAligner: the index has no shards")

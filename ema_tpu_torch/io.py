@@ -17,7 +17,7 @@ from __future__ import annotations
 import gzip
 from typing import List, Tuple
 
-from ema_tpu.utils.barcodes import encode_bc, extract_bc_from_id
+from ema_tpu_torch.utils.barcodes import encode_bc, extract_bc_from_id
 from ema_tpu_torch.core.batch import ReadBatch
 
 

@@ -9,7 +9,8 @@ later calls (and later processes) load the cached library.
 source.  A failed build raises; there is no fallback.
 
 Each library exports ``<name>_launch`` with the argument types that
-``KERNELS`` gives it (the SW signature, or the ALU probe's) and, for the
+``KERNELS`` gives it (the SW signature, sw_banded's with its
+permutation, or the ALU probe's) and, for the
 banded kernels, ``<name>_max_wl``.
 """
 
@@ -33,10 +34,13 @@ _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 #  max_wl, match, mismatch, gap_open, gap_extend, clip, out, stream)
 SW_ARGTYPES = [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i64, _i32,
                _i32, _i32, _i32, _i32, _i32, _p, _p]
+# sw_banded: (..., wl, perm, perm_off, N, max_wl, ...): slot c scores
+# candidate perm[perm_off + c]
+SW_BANDED_ARGTYPES = SW_ARGTYPES[:9] + [_p, _i64] + SW_ARGTYPES[9:]
 # (x, out, n, K, unroll, dpx, stream)
 PROBE_ARGTYPES = [_p, _p, _i64, _i32, _i32, _i32, _p]
 # kernel -> the argument types of its <name>_launch
-KERNELS = {"sw_banded": SW_ARGTYPES, "sw_banded16": SW_ARGTYPES,
+KERNELS = {"sw_banded": SW_BANDED_ARGTYPES, "sw_banded16": SW_ARGTYPES,
            "sw_banded_packed": SW_ARGTYPES, "sw_batch": SW_ARGTYPES,
            "alu_probe": PROBE_ARGTYPES}
 

@@ -62,7 +62,8 @@ int sw_banded_packed_launch(const void *text, int64_t text_n,
         static_cast<const int32_t *>(owners),
         static_cast<const int64_t *>(win_lo),
         static_cast<const int32_t *>(win_len),
-        static_cast<const int32_t *>(wl), N, p, static_cast<int32_t *>(out));
+        static_cast<const int32_t *>(wl), nullptr, N, p,
+        static_cast<int32_t *>(out));
     return (int)cudaGetLastError();
 }
 

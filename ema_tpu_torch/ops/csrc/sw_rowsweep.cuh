@@ -1,6 +1,7 @@
-// The int32 banded row sweep shared by sw_banded.cu (one or more whole
-// warps per candidate) and sw_banded_packed.cu (a 16-lane half warp per
-// candidate, two candidates per warp).
+// The int32 banded row sweep shared by sw_banded.cu (a part of a warp, a
+// whole warp or several warps per candidate, by corridor-width class) and
+// sw_banded_packed.cu (a 16-thread half warp per candidate, two candidates
+// per warp).
 //
 // Recurrences, outputs and tie rules are those of ema_tpu/ops/sw.py:
 // sw_score_banded (its plain PyTorch twin is ema_tpu_torch/ops/sw.py:
@@ -24,6 +25,11 @@
 // same nearest-wins rule.  Two block barriers per row serve the
 // multi-warp form: one publishes the previous row's lane-0 state, one the
 // warp totals.
+//
+// Slot c of a launch scores candidate perm[c] (c itself when perm is
+// null) and writes out[perm[c]]: a caller that sorted its candidates into
+// width classes launches each class on its span of the permutation and
+// gets the results back in its own order.
 #pragma once
 
 #include "sw_common.cuh"
@@ -38,7 +44,8 @@ rowsweep_kernel(const uint8_t *__restrict__ text, int64_t text_n,
                 const int32_t *__restrict__ owners,
                 const int64_t *__restrict__ win_lo,
                 const int32_t *__restrict__ win_len,
-                const int32_t *__restrict__ wl_arr, int64_t N, Scoring p,
+                const int32_t *__restrict__ wl_arr,
+                const int32_t *__restrict__ perm, int64_t N, Scoring p,
                 int32_t *__restrict__ out) {
     static_assert(WARPS == 1 || SEGW == 32,
                   "a multi-warp candidate is made of whole warps");
@@ -52,12 +59,13 @@ rowsweep_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     const int lane = threadIdx.x & 31;
     const int sl = threadIdx.x & (SEGW - 1);          // thread in segment
     const int wc = WARPS > 1 ? (int)(threadIdx.x >> 5) : 0;
-    const int64_t b = (int64_t)blockIdx.x * kCandPerBlock
+    const int64_t slot = (int64_t)blockIdx.x * kCandPerBlock
         + (WARPS > 1 ? 0 : (int64_t)(threadIdx.x / SEGW));
-    const bool live = b < N;
-    // a whole-warp candidate leaves as a whole; a half-warp segment past
-    // N stays for its partner's shuffles with no rows and no lanes
+    const bool live = slot < N;
+    // a whole-warp candidate leaves as a whole; a part-warp segment past
+    // N stays for its partners' shuffles with no rows and no lanes
     if (SEGW == 32 && !live) return;
+    const int64_t b = (live && perm != nullptr) ? (int64_t)perm[slot] : slot;
 
     int32_t rl = 0, nl = 0, wl = 0;
     int64_t lo = 0;

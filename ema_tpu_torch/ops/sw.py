@@ -13,9 +13,10 @@ ema_tpu/core/pipeline.py:_gather_score fused in:
   packed    csrc/sw_banded_packed.cu  _banded_kernel_packed   wl <= 64
   scan      csrc/sw_batch.cu          _kernel                 whole window
 
-On CUDA tensors the scorer's kernel launches; on CPU tensors its plain
-version runs.  A CUDA tensor never runs the plain version, and a failed
-build or launch raises.
+On CUDA tensors the scorer's kernel launches (``banded`` once per
+corridor-width class of the call, see ``plan_class_launches``); on CPU
+tensors its plain version runs.  A CUDA tensor never runs the plain
+version, and a failed build or launch raises.
 
 The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
 is ema_tpu/ops/sw.py:sw_score_banded, ``sw_score_banded16_ref`` the same
@@ -30,6 +31,7 @@ copied), and ``sw_score_batch_ref`` ema_tpu/ops/sw.py:sw_score_batch.
 
 from __future__ import annotations
 
+import bisect
 import threading
 
 import torch
@@ -406,6 +408,104 @@ def _check(name, t, dtype, ndim, dev):
                          f"{t.device})")
 
 
+# Upper corridor widths of sw_banded's width classes (the table in
+# csrc/sw_banded.cu, which also picks each class's threads per candidate
+# from its size).  The usual chained corridor is 2 x 24 + 2 lanes plus the
+# chain's diagonal spread, 50 to about 60 with small indels: one class
+# holds 33..64, so such a call stays one class.  96 splits the 65..128
+# range, whose narrow half runs faster on 16 threads x 6 lanes than on a
+# whole warp.
+BANDED_CLASS_EDGES = (32, 64, 96, 128, 256, 512, 768, 1024, 2048, 4096)
+# A call that spans several classes is sorted only where that pays: the
+# sort (class sizes read back, bucketize, a stable argsort) costs about as
+# much as the kernel takes for a few thousand chained candidates, so it
+# must save at least this many lane slots (candidates x class edge)
+# against one launch of the whole call at its widest class.
+SORT_PAYS_SLOTS = 1 << 20
+
+
+def _edges_on(wl: torch.Tensor, edges) -> torch.Tensor:
+    return torch.as_tensor(edges, dtype=wl.dtype, device=wl.device)
+
+
+def class_counts(wl: torch.Tensor, edges=BANDED_CLASS_EDGES) -> torch.Tensor:
+    """Sizes of the corridor-width classes of ``wl``, int64 [len(edges)]
+    on ``wl``'s device, with no host synchronisation: class ``i`` holds
+    the candidates with ``edges[i-1] < wl <= edges[i]``.  A ``wl`` past
+    ``edges[-1]`` is in no class (the caller refuses it).  ``edges`` may
+    be a tensor on ``wl``'s device already."""
+    below = (wl[:, None] <= _edges_on(wl, edges)[None, :]).sum(dim=0)
+    return torch.diff(below, prepend=below.new_zeros(1))
+
+
+def class_permutation(wl: torch.Tensor,
+                      edges=BANDED_CLASS_EDGES) -> torch.Tensor:
+    """int32 [N]: the candidates listed class by class, in the caller's
+    order within a class (a stable sort on one-byte class ids), so class
+    ``i`` is the span of ``class_counts(wl)[i]`` entries after those of
+    the classes below."""
+    cls = torch.bucketize(wl, _edges_on(wl, edges)).to(torch.uint8)
+    return torch.argsort(cls, stable=True).to(torch.int32)
+
+
+def class_spans(counts, edges=BANDED_CLASS_EDGES) -> list:
+    """``(edge, offset, n)`` of each non-empty class, from the class
+    sizes read back to the host: one kernel launch each."""
+    spans, off = [], 0
+    for edge, n in zip(edges, counts):
+        if n:
+            spans.append((edge, off, int(n)))
+        off += int(n)
+    return spans
+
+
+def plan_class_launches(wl: torch.Tensor, w_lo: int, w_hi: int,
+                        edges=BANDED_CLASS_EDGES, sort_pays=None):
+    """``(perm, spans)`` for a call whose corridors span ``[w_lo, w_hi]``
+    (read back already, with the bounds check).  When both ends fall in
+    one class, as in the pipeline's usual chained or rescue call, that is
+    one span over the caller's own order and no permutation (None): no
+    sort, no second readback.  Otherwise the class sizes are read back;
+    if launching class by class saves fewer than ``sort_pays`` lane slots
+    (SORT_PAYS_SLOTS) against one launch at the widest class, the call
+    stays one unsorted span at that class, else the candidates are sorted
+    on the device."""
+    if sort_pays is None:
+        sort_pays = SORT_PAYS_SLOTS
+    lo, hi = bisect.bisect_left(edges, w_lo), bisect.bisect_left(edges, w_hi)
+    N = wl.shape[0]
+    if lo == hi:
+        return None, [(edges[hi], 0, N)]
+    e = _edges_on(wl, edges)            # one upload for both
+    spans = class_spans(class_counts(wl, e).tolist(), edges)
+    if N * edges[hi] - sum(edge * n for edge, _, n in spans) < sort_pays:
+        return None, [(edges[hi], 0, N)]
+    return class_permutation(wl, e), spans
+
+
+def gather_score_by_class_ref(text, oriented, olens, owners, win_lo,
+                              win_len, wl, *, edges=BANDED_CLASS_EDGES,
+                              sort_pays=None, **kw) -> torch.Tensor:
+    """Plain version of sw_banded's class launches: the candidates go
+    through ``plan_class_launches`` as the kernel's do, each class is
+    scored by ``gather_score_ref`` on its own, and row ``perm[c]`` of the
+    result takes slot ``c``'s output, so the result is in the caller's
+    order and equals one ``gather_score_ref`` call."""
+    N = owners.shape[0]
+    out = torch.empty((N, 4), dtype=torch.int32, device=text.device)
+    if N == 0:
+        return out
+    perm, spans = plan_class_launches(wl, int(wl.min()), int(wl.max()),
+                                      edges, sort_pays)
+    perm = (torch.arange(N, device=text.device) if perm is None
+            else perm.long())
+    for _, off, n in spans:
+        idx = perm[off:off + n]
+        out[idx] = gather_score_ref(text, oriented, olens, owners[idx],
+                                    win_lo[idx], win_len[idx], wl[idx], **kw)
+    return out
+
+
 def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
                    scorer, match, mismatch, gap_open, gap_extend, clip):
     from ema_tpu_torch.ops import _build
@@ -425,14 +525,19 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     wl = wl.to(torch.int32).contiguous()
     oriented = oriented.contiguous()
     olens = olens.to(torch.int32).contiguous()
-    # bounds the kernel trusts: checked here, on the host, before launch
-    o_lo, o_hi = (int(v) for v in torch.aminmax(owners))
+    # bounds the kernel trusts: one readback, checked here, on the host,
+    # before launch
+    host = [*torch.aminmax(owners)]
+    if scorer != "scan":           # scan scores the whole window
+        max_wl = lib.max_wl()
+        host += torch.aminmax(wl)
+    host = torch.stack(host).tolist()
+    o_lo, o_hi = host[:2]
     if o_lo < 0 or o_hi >= R:
         raise ValueError(f"gather_score: owners out of range [0, {R})")
     w_hi = 0
-    if scorer != "scan":           # scan scores the whole window
-        w_lo, w_hi = (int(v) for v in torch.aminmax(wl))
-        max_wl = lib.max_wl()
+    if scorer != "scan":
+        w_lo, w_hi = host[2:4]
         if w_lo < 1 or w_hi > max_wl:
             raise ValueError(f"gather_score: wl must lie in [1, {max_wl}] "
                              f"for the {name} kernel (got [{w_lo}, "
@@ -442,14 +547,26 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
                                gap_extend, clip)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.launch(
-            text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
-            olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
-            win_len.data_ptr(), wl.data_ptr(), N, w_hi, match, mismatch,
-            gap_open, gap_extend, clip, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name].add()
+        head = (text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
+                olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
+                win_len.data_ptr(), wl.data_ptr())
+        tail = (match, mismatch, gap_open, gap_extend, clip, out.data_ptr(),
+                stream)
+        if scorer == "banded":
+            # one launch per non-empty width class, each on its span of
+            # the permutation (the kernel writes out[perm[slot]]); perm
+            # is kept alive until the launches below are queued
+            perm, spans = plan_class_launches(wl, w_lo, w_hi)
+            perm_ptr = None if perm is None else perm.data_ptr()
+            launches = [(perm_ptr, off, n, edge) for edge, off, n in spans]
+        else:
+            launches = [(N, w_hi)]
+        for args in launches:
+            rc = lib.launch(*head, *args, *tail)
+            if rc != 0:
+                raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                   f"error {rc}")
+            LAUNCHES[name].add()
     return out
 
 

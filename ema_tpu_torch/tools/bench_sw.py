@@ -34,15 +34,12 @@ events and every number stands beside the card's name and power limit.
 from __future__ import annotations
 
 import collections
-import functools
-import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
 import time
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -51,7 +48,6 @@ from ema_tpu_torch.ops import _build, probe
 from ema_tpu_torch.ops.sw import (gather_score, sw_score_banded_ref,
                                   sw_score_batch_ref)
 
-ROOT = Path(__file__).resolve().parents[2]
 SHAPE = (16384, 100, 192, 128)      # B, m, n, W (tools/bench_sw.py:33)
 CPU_B = 64
 ITERS = 5
@@ -77,6 +73,46 @@ EXACT = ("banded-pallas", "banded16", "pallas", "banded-scan", "scan")
 #     the 5-step carry scan 35, the exclusive shift 5 = 62, so 15.5 a cell.
 # 35 + 52 + 15.5 = 102.5, counted as 102.
 BANDED_OPS_PER_CELL = 102
+# The fewest integer instructions a cell of that recurrence admits on
+# sm_90 (sw_rowsweep.cuh:9-13 with the start rows its outputs need), with
+# the DPX instructions, counted by hand for a sequential sweep with no
+# second pass: what bounds any kernel of this function, not what this one
+# emits.  The fusion that counts here is the min/max with a predicate
+# output (__vibmax_s32(a, b, &pred), one VIMNMX): every maximum whose
+# start row the outputs need is that one instruction and one select on
+# its predicate, not max + compare + select.  VIADDMNMX (max(a + b, c))
+# and VIMNMX3 (max(a, b, c)) give no predicate, so they save nothing
+# where a start row follows the maximum, which is everywhere here.
+#   sub-score: rc == fb compare, select match / -mismatch, the N test
+#     (fb >= 4 or-ed with the row's rc >= 4 in one compare), select -1   4
+#   Hd = max(H[i-1][k], fresh) + sub: max with predicate, add            2
+#     its start row: select                                              1
+#   F = max(H[i-1][k+1] - go - ge, F[i-1][k+1] - ge): 2 adds, max        3
+#     its start row: select                                              1
+#   H0 = max(Hd, F) and its start row: max, select                       2
+#   scan value H0 + k ge, k ge a per-lane constant: add                  1
+#   running horizontal prefix (value, start): max, select                2
+#   E = P - (k ge + go), the subtrahend a per-lane constant              1
+#   EF = max(E, F) and its start: max, select                            2
+#   H = max(Hd, EF) and its start (diag >= horizontal >= vertical):
+#     max, select                                                        2
+#   best cell of the lane: max with predicate, 2 selects (row, start)    3
+# 24 a cell.  Not counted, because the function does not need them per
+# cell: validity (i + k <= nl is a prefix of a row's lanes, and always
+# true where the window holds rl + wl columns, as every chained call's
+# does), the NEG kept in invalid H and F, the end-of-read adjustment (0
+# on the last row, -clip on every other: the last row can be offered
+# apart), and the window base of the next row (a move that belongs to a
+# register layout).  The s16x2 kernel is counted at two cells an
+# instruction (12 a cell), select on two predicates included.  The
+# whole-window scorer has no corridor scan: its horizontal gap is
+# E = max(H[i][j-1] - go - ge, E[i][j-1] - ge) with its start (4) in
+# place of H0, the scan value, the prefix and E (2 + 1 + 2 + 1): 22.
+MIN_INSTR_PER_CELL = {"sw_banded": 24, "sw_banded16": 12,
+                      "sw_banded_packed": 24, "sw_batch": 22}
+# the probe's chain step as ptxas emits it: LOP3 and VIADDMNMX
+PROBE_INSTR_PER_STEP = 2
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # int32 results per clock per SM at compute capability 9.0 for 32-bit
 # integer add, compare/min/max and bitwise ops: the throughput table of
 # the CUDA C++ Programming Guide ("Arithmetic Instructions").
@@ -158,16 +194,6 @@ def _timed(fn, device, iters):
     return out, (time.perf_counter() - t0) / iters * 1e3
 
 
-@functools.cache
-def _simulate():
-    """tests/simulate.py, loaded by path (as chip_smoke.py loads it)."""
-    spec = importlib.util.spec_from_file_location(
-        "ema_simulate", ROOT / "tests" / "simulate.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def max_sm_clock_mhz() -> float:
     """The first card's max SM clock, from nvidia-smi."""
     r = subprocess.run(
@@ -175,6 +201,24 @@ def max_sm_clock_mhz() -> float:
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True, timeout=60)
     return float(r.stdout.strip().splitlines()[0])
+
+
+def int32_instr_per_s(device) -> float:
+    """The card's peak int32 instruction rate: SMs x max SM clock x
+    INT32_OPS_PER_CLOCK_PER_SM."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * max_sm_clock_mhz() * 1e6 * INT32_OPS_PER_CLOCK_PER_SM
+
+
+def bound_ms(instructions: float, n_bytes: float, instr_per_s: float):
+    """The least time the card could take: the larger of the integer
+    instructions over its int32 instruction rate and the bytes (each input
+    read once, each output written once) over its memory rate.  Returns
+    (ms, "operations" or "bytes")."""
+    t_ops = instructions / instr_per_s * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
 
 
 def sass_opcodes(kernel: str, function: str) -> dict:
@@ -254,8 +298,7 @@ def step_probe(device) -> dict:
     res.update(sm_count=props.multi_processor_count,
                sm_clock_max_mhz=clock,
                int32_ops_per_clock_per_sm=INT32_OPS_PER_CLOCK_PER_SM,
-               int32_tops_theoretical=props.multi_processor_count * clock
-               * 1e6 * INT32_OPS_PER_CLOCK_PER_SM / 1e12)
+               int32_tops_theoretical=int32_instr_per_s(device) / 1e12)
     # what ptxas made of each form's UNROLL = 32 body: integer
     # instructions per counted chain step (3 ops), and the instruction rate
     for form in probe.FORMS:
@@ -288,13 +331,13 @@ def step_wl_sample(device) -> dict:
     """Per-candidate corridors (wl) of real chaining on the 400 kbp world
     of tools/bench_sw.py:239-244, through the port's Aligner (on the CPU
     with the native scorer: wl comes from chaining, not from scoring)."""
-    from ema_tpu import config
-    from ema_tpu.index import build_index
-    from ema_tpu.ops import chaining
+    from ema_tpu_torch import config
+    from ema_tpu_torch.index import build_index
+    from ema_tpu_torch.ops import chaining
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.tools import simulate as sim
 
-    sim = _simulate()
     rng = np.random.default_rng(7)
     genome = sim.rand_genome(rng, 400_000)
     idx = build_index({"chr1": genome})
@@ -412,6 +455,7 @@ def run(device, B=None, out_json=None) -> dict:
         flush()
     art.update(step_wl_sample(device))
     art["banded_ops_per_cell_static"] = BANDED_OPS_PER_CELL
+    art["min_instr_per_cell"] = MIN_INSTR_PER_CELL
     if on_card:
         best = art["variants"]["banded-pallas"]["gcells_per_s"]
         ach = best * 1e9 * BANDED_OPS_PER_CELL

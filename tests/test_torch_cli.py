@@ -331,14 +331,16 @@ def test_multi_host_flags_exit_1(argv, capsys):
     assert "multi-host is not ported yet" in capsys.readouterr().err
 
 
-def test_cuda_without_a_card_exits_1(x_world, capsys):
-    """--device cuda with no card fails before any work; nothing carries
-    on on the CPU."""
+@pytest.mark.parametrize("device", [["--device", "cuda"], []],
+                         ids=["cuda", "default"])
+def test_cuda_without_a_card_exits_1(device, x_world, capsys):
+    """--device cuda, which is also the default, fails with no card
+    before any work; nothing carries on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     tmp, fa, buckets = x_world
     out = tmp / "nocard.sam"
-    assert cli.main(["align", "--device", "cuda", "-r", fa, "-x", "-o",
+    assert cli.main(["align", *device, "-r", fa, "-x", "-o",
                      str(out), *buckets]) == 1
     assert "torch.cuda.is_available() is false" in capsys.readouterr().err
     assert not out.exists()

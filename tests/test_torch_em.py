@@ -16,6 +16,7 @@ from ema_tpu import config
 from ema_tpu.core import em_jax, groups
 from ema_tpu_torch.core import em
 from test_em_jax import _synthetic_group
+from torch_handover import port_states
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 CPU = torch.device("cpu")
@@ -136,6 +137,7 @@ def test_dispatch_matches_host_native_and_jax(platform):
     and C++ for the deep group) == groups.dispatch_em_device_batch."""
     states = _states(platform)
     host, dev, jx, nat = (_copy(states) for _ in range(4))
+    dev = port_states(dev)
     groups.run_em_host_batch(host)
     wait = em.dispatch_em_batch(dev, CPU)
     wait()
@@ -155,13 +157,13 @@ def test_dispatch_matches_host_native_and_jax(platform):
 
 def test_dispatch_is_deterministic_and_skips_empty():
     states = _states("10x")
-    a, b = _copy(states), _copy(states)
+    a, b = port_states(_copy(states)), port_states(_copy(states))
     em.dispatch_em_batch(a, CPU)()
     em.dispatch_em_batch(b, CPU)()
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x.gammas, y.gammas)
     # no EM-gated group: nothing to launch
-    small = [st for st in _copy(states) if not st.needs_em]
+    small = port_states(st for st in _copy(states) if not st.needs_em)
     em.dispatch_em_batch(small, CPU)()
     assert em.dispatch_em_batch([], CPU)() is None
 
@@ -170,7 +172,8 @@ def test_deep_group_gammas_concentrate():
     """The deep pair's in-cloud candidate wins through the native flat EM
     that dispatch_em_batch sends it to (test_em_jax.py:140)."""
     recs, idents = deep_em_group()
-    st = groups.sweep_group(recs, idents, config.get_platform_profile("10x"))
+    [st] = port_states([groups.sweep_group(
+        recs, idents, config.get_platform_profile("10x"))])
     em.dispatch_em_batch([st], CPU)()
     deep = np.nonzero(st.cmask.sum(axis=1) > groups.EM_NATIVE_C)[0]
     assert deep.size == 2

@@ -11,6 +11,7 @@ from ema_tpu import native
 from ema_tpu.index import fmindex
 from ema_tpu.index.build import build_index
 from ema_tpu_torch.index import fm
+from torch_handover import port_index
 
 
 def _world(kind, sa_rate):
@@ -24,7 +25,8 @@ def _world(kind, sa_rate):
     idx = build_index({"c": genome}, sa_rate=sa_rate)
     assert idx.sa_rate == sa_rate
     return (idx, fmindex.FMIndexArrays.from_index(idx),
-            fm.FMIndexArrays.from_index(idx, torch.device("cpu")), genome)
+            fm.FMIndexArrays.from_index(port_index(idx), torch.device("cpu")),
+            genome)
 
 
 @pytest.fixture(scope="module", params=[

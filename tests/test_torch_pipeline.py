@@ -1,5 +1,8 @@
 """The port's align path (ema_tpu_torch) against the JAX package, on CPU.
 
+Indexes and configs are built with the JAX package and handed to the port
+as plain arrays and fields (tests/torch_handover.py).
+
 On the CPU the port scores with the plain PyTorch SW and runs EM on the
 host by default; with ``device_em=True`` it runs the torch EM, and with
 ``seed_impl="device"`` the torch FM ops, on the CPU.  Its SAM must be
@@ -21,10 +24,11 @@ from ema_tpu import config
 from ema_tpu.core import pipeline as jax_pipeline
 from ema_tpu.index import build_index
 from ema_tpu_torch.core.batch import ReadBatch
-from ema_tpu_torch.core.pipeline import (Aligner, orient_device,
-                                         resolve_device_em, resolve_seed_impl)
+from ema_tpu_torch.core.pipeline import (orient_device, resolve_device_em,
+                                         resolve_seed_impl)
 from ema_tpu_torch.index.device import to_device_state
 from simulate import rand_genome, simulate_pairs, to_str
+from torch_handover import Aligner, port_index
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -53,8 +57,8 @@ def test_orientation_matches_jax_and_host():
 
 def test_device_state_preserves_text():
     rng = np.random.default_rng(3)
-    idx = build_index({"a": rand_genome(rng, 5000),
-                       "b": rand_genome(rng, 700)})
+    idx = port_index(build_index({"a": rand_genome(rng, 5000),
+                                  "b": rand_genome(rng, 700)}))
     state = to_device_state(idx, torch.device("cpu"))
     assert state.text.dtype == torch.uint8 and state.fm is None
     np.testing.assert_array_equal(state.text.numpy(), idx.text)
@@ -305,8 +309,16 @@ def test_resolve_device_em(device_em, dev, want):
 _NO_JAX_SCRIPT = r"""
 import os, sys
 import numpy as np
-from ema_tpu import config
-from ema_tpu.index.build import build_index
+import chip_smoke
+chip_smoke.refuse_reference_imports()     # jax, jaxlib and ema_tpu
+try:
+    import ema_tpu.config
+except ImportError:
+    pass
+else:
+    raise AssertionError("the finder let ema_tpu through")
+from ema_tpu_torch import config
+from ema_tpu_torch.index.build import build_index
 from ema_tpu_torch.core.batch import ReadBatch
 from ema_tpu_torch.core.pipeline import Aligner
 from chip_smoke import simulate
@@ -402,12 +414,18 @@ with open(out) as f:
 from ema_tpu_torch.tools import bench_sw
 os.environ["EMA_TPU_BENCH_SW_B"] = "16"
 assert bench_sw.main(["cpu", "--json", os.path.join(tmp, "bsw.json")]) == 0
-assert "jax" not in sys.modules, "jax was imported"
+assert main(["samdiff", out, out, "--fail-under", "100"]) == 0
+loaded = chip_smoke.reference_modules_loaded()
+assert not loaded, f"modules of jax or ema_tpu were imported: {loaded}"
 print("NO_JAX_OK", len(recs))
 """
 
 
 def test_align_and_cli_never_import_jax(tmp_path):
+    """Every single-host mode of the port (count, preproc, index, align
+    -s / -x --sort --manifest, samdiff, a sharded index, both EM and both seed
+    placements, bench_sw cpu) in a subprocess whose import finder refuses
+    jax, jaxlib and ema_tpu: none of their modules is loaded at the end."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)

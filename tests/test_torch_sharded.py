@@ -21,9 +21,9 @@ from ema_tpu.core import pipeline as jax_pipeline
 from ema_tpu.index import build_index, build_index_sharded
 from ema_tpu.utils.replay import ReplayWriter
 from ema_tpu_torch.core.batch import ReadBatch
-from ema_tpu_torch.core.pipeline import Aligner, ShardedAligner
 from ema_tpu_torch.index.device import to_device_state
 from simulate import revcomp_str, rand_genome, simulate_pairs, to_str
+from torch_handover import Aligner, ShardedAligner, port_index
 
 
 @pytest.fixture(scope="module")
@@ -93,14 +93,14 @@ def test_sharded_aligner_takes_the_first_subs_choices(world):
                for s in sa.subs)
     assert not sa._defer_dist_window and sa.replay_sink is None
     with pytest.raises(ValueError, match="no shards"):
-        ShardedAligner(type(sharded)([], []), device="cpu")
+        ShardedAligner(type(port_index(sharded))([], []), device="cpu")
 
 
 @pytest.mark.parametrize("shard", [0, 1, 2])
 def test_device_state_of_every_shard(shard, world):
     """to_device_state carries each shard's text and FM arrays across."""
     sh = world[3].shards[shard]
-    state = to_device_state(sh, torch.device("cpu"), fm=True)
+    state = to_device_state(port_index(sh), torch.device("cpu"), fm=True)
     np.testing.assert_array_equal(state.text.numpy(), sh.text)
     for name in ("occ_blocks", "counts", "sa_mark_rank", "sa_values"):
         np.testing.assert_array_equal(getattr(state.fm, name).numpy(),

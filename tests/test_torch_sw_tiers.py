@@ -22,13 +22,14 @@ from ema_tpu.ops.sw_pallas import (sw_score_banded_pallas16,
                                    sw_score_banded_pallas_packed,
                                    sw_score_batch_pallas)
 from ema_tpu_torch.core.batch import ReadBatch
-from ema_tpu_torch.core.pipeline import Aligner, resolve_sw_impl
+from ema_tpu_torch.core.pipeline import resolve_sw_impl
 from ema_tpu_torch.ops import sw as port_sw
 from ema_tpu_torch.ops.sw import (CALLS, LAUNCHES, gather_score,
                                   reset_counts, sw_score_banded16_ref,
                                   sw_score_banded_packed_ref,
                                   sw_score_batch_ref)
 from simulate import rand_genome, simulate_pairs, to_str
+from torch_handover import Aligner
 
 KEYS = ("score", "qb", "qe", "ref_end")
 
