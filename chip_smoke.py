@@ -20,9 +20,13 @@ failure raises and the run exits non-zero:
      the mate-rescue shape, a mixed-width set drawn as the pipeline draws
      its corridors (most near 50, a tail to 250, a few past 1024 in one
      call) and edge sets (read lengths 0..1023, N runs, negative win_lo,
-     windows past the text end, corridors up to 4096), with kernel and
-     plain times and each kernel's bound (the least time the card could
-     take for the same cells);
+     windows past the text end, corridors up to 4096; for sw_batch also
+     one set per thread form: reads of 1 to 1023 bp at call sizes on both
+     sides of its threshold), with kernel and plain times and each
+     kernel's bound (the least time the card could take for the same
+     cells at its peak issue and int32 rates; the s16x2 rate that the
+     probe measures is logged beside them), and sw_batch at 8 and 32
+     threads a candidate;
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -41,15 +45,18 @@ failure raises and the run exits non-zero:
   6. main path: the bench world of bench.py (BASELINE config 1: 3 Mbp
      genome, ~40.7k pairs of 100 bp reads) aligned on the card with each
      scorer, with pairs/s, launches and accuracy against the simulation
-     truth; the default run also gives the stage split and re-scores one
+     truth; the default run also gives the stage split and the peak
+     device memory, passes check_sam with no fault and re-scores one
      real chunk with the native host scorer, banded16 and tier64 must
      give the default's SAM records, and scan re-scores one real chunk
      with its plain version on the card; every SW kernel timed on the
      default run's recorded chained and rescue calls (cells, ms, Gcell/s,
-     share of the bound); then device EM on and off in
-     turns (on, off, off, on) with pairs/s, the em stage and 0 differing
-     records, one torch.profiler pass (device idle share, and whether the
-     EM stream overlaps the SW stream), and one pass with device locate
+     share of the bound; sw_banded's and sw_banded16's launch rules and
+     sw_batch's thread forms on that chained call); then device EM on and
+     off in turns (on, off, off, on) with pairs/s, the whole stage table
+     and 0 differing records, one torch.profiler pass (device idle share,
+     the EM's launches per emit batch and per pass, and whether the EM
+     stream overlaps the SW stream), and one pass with device locate
      that must give the default's records;
   7. long reads: two pairs of 600 bp reads (mate-rescue corridors past
      1024 lanes) aligned on the card must give the CPU path's SAM;
@@ -59,14 +66,17 @@ failure raises and the run exits non-zero:
   9. bench tool: ema_tpu_torch.tools.bench_sw in this process at its full
      shape (B = 16,384, m = 100, n = 192, W = 128): Gcell/s of each SW
      kernel and plain version, every variant bit-exact, packed against
-     its wl-masked plain version; the probe, both forms, bit-exact
-     against alu_probe_ref on the TPU's [8, 128] input and on a
+     its wl-masked plain version; the probe, all three forms, bit-exact
+     against their plain versions on the TPU's [8, 128] input and on a
      card-filling grid, timed at the TPU tool's K, against the card's
-     theoretical int32 rate, and the banded kernel's roofline share;
+     theoretical int32 rate, and the banded kernel's roofline share; what
+     each s16x2 operation compiles to and the SASS instructions a cell
+     of the SW kernels' inner loops (cuobjdump);
  10. -x: the bench world written as an interleaved FASTQ and a
      whitelist, then ``count``, ``preproc -n 500 -t 4`` and ``align -x``
      over the 500 buckets: coalesced, ``--no-coalesce -j 1`` and ``-j 2``
-     byte-identical, a ``--manifest`` rerun that touches no part, two
+     byte-identical and with no check_sam fault, a ``--manifest`` rerun
+     that touches no part, two
      ``--sort --shard`` runs merged equal to the single sorted run (MI
      masked), samdiff against the library path with 0 records differing,
      >= 98% within +-5 bp, pairs/s of each and of the library path;
@@ -154,8 +164,21 @@ def simulate():
     return sim
 
 
+LOG_PATH = os.path.join(ROOT, "build", "ema_tpu_torch", "chip_smoke.log")
+_log_file = None
+
+
 def log(msg: str) -> None:
+    """Print, and keep the whole run's lines in
+    build/ema_tpu_torch/chip_smoke.log of the checkout (gitignored): a
+    caller may only see the output's end."""
+    global _log_file
     print(msg, flush=True)
+    if _log_file is None:
+        os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+        _log_file = open(LOG_PATH, "w")
+    _log_file.write(msg + "\n")
+    _log_file.flush()
 
 
 def check(cond, msg: str) -> None:
@@ -390,15 +413,39 @@ def sw_cases(dev, seed=7):
     oriented3, pos3 = _reads_from_text(rng, text, R3, L3, lens3)
     for cap in (2048, 4096):
         cases[f"long_w{cap}"] = edge_set(oriented3, lens3, pos3, cap, 256)
+    # sw_batch picks its thread form from the longest read of the call and
+    # from its size: reads of 0 bases to `top` (one of exactly `top`), at
+    # sizes on both sides of its threshold, windows that run off both ends
+    # of the text
+    for top, Ne in SCAN_FORM_CASES:
+        Rs = 256
+        lens_s = rng.integers(0, top + 1, Rs).astype(np.int32)
+        lens_s[:3] = [top, top, min(1, top)]
+        oriented_s, pos_s = _reads_from_text(rng, text, Rs, max(top, 2),
+                                             lens_s)
+        cases[f"scan_rl{top}_n{Ne}"] = edge_set(oriented_s, lens_s, pos_s,
+                                                48, Ne)
     return cases
 
 
 # kLargeClass of csrc/sw_banded.cu: from this many candidates a class of at
 # most 96 lanes takes part-warp segments
 LARGE_CLASS = 6144
-# the cases each kernel is held to (the packed tier takes wl <= 64)
+# sw_batch and sw_banded16 take their part-warp forms from more than 8
+# candidates an SM (csrc/sw_batch.cu, csrc/sw_banded16.cu): a size on that
+# side of the threshold on any card, and the threshold on a card of 132 SMs
+SCAN_LARGE_CALL = 2048
+WARP_CALL_132 = 8 * 132
+# (longest read, candidates) of sw_batch's thread-form cases: every form of
+# its table (8 x 4, 7, 10, 13; 32 x 4, 8, 16, 24, 32 rows)
+SCAN_FORM_CASES = (
+    [(top, SCAN_LARGE_CALL) for top in (1, 31, 56, 80, 100, 200, 250)]
+    + [(1, 512), (31, 512), (100, 512), (250, 512), (512, 256), (600, 256),
+       (1023, 256)])
+# the cases each kernel is held to: every case but sw_batch's thread-form
+# ones (None), or a list (the packed tier takes wl <= 64)
 KERNEL_CASES = {
-    "sw_banded": None, "sw_banded16": None, "sw_batch": None,
+    "sw_banded": None, "sw_banded16": None, "sw_batch": "all",
     "sw_banded_packed": ("chained_w64", "odd_w64", "mixed_w64", "edge_w32",
                          "edge_w64", f"edge_w56_n{LARGE_CLASS}"),
 }
@@ -428,6 +475,32 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def _planned(c, scorer, group=0):
+    """(out, launch) of the wrapper's plan for the scorer's kernel on
+    ``c``; ``group`` asks sw_batch or sw_banded16 for one thread form (8 or
+    32 threads) in place of the launch's own choice."""
+    from ema_tpu_torch.ops.sw import _plan_kernel
+
+    return _plan_kernel(c["text"], c["oriented"], c["olens"], c["owners"],
+                        c["win_lo"], c["win_len"], c["wl"], scorer=scorer,
+                        group=group, **SW_KW)
+
+
+def _kernel_ms(c, scorer, reps: int, group=0) -> float:
+    """Mean device time of the scorer's kernel launches alone on ``c``:
+    the wrapper's plan (checks, the bounds' readback, the class sort) is
+    made once, outside the timed window."""
+    return _time_ms(_planned(c, scorer, group)[1], reps)
+
+
+def _form_out(c, scorer, group) -> torch.Tensor:
+    """The kernel's output on ``c`` at one thread form."""
+    out, launch = _planned(c, scorer, group)
+    launch()
+    torch.cuda.synchronize()
+    return out
+
+
 def _cells(c, scorer) -> int:
     """DP cells a kernel computes: rl x wl for the banded kernels, rl x
     window for the whole-window scan."""
@@ -436,21 +509,46 @@ def _cells(c, scorer) -> int:
     return int((rl * width.long()).sum())
 
 
-def _bound(name, c, scorer, rate) -> tuple:
-    """(bound ms, bound_by, cells) of kernel ``name`` on the inputs ``c``:
-    the cells these inputs need times the fewest integer instructions a
-    cell admits (tools/bench_sw.MIN_INSTR_PER_CELL) over the card's int32
-    instruction rate, against the bytes that must move (each candidate's
-    read row and window, its index entries, its output row) over the
-    memory rate."""
+_RATES = {}
+
+
+def instr_rates(dev) -> dict:
+    """The card's instruction rates: ``int32``, the peak every bound is
+    stated at (SMs x max SM clock x 64, which the probe's alu form
+    reaches), and ``s16x2_measured``, the packed instructions of
+    sw_banded16 as the probe's s16x2 form runs them here: logged beside
+    the peak, used in no bound."""
+    from ema_tpu_torch.tools import bench_sw
+
+    if not _RATES:
+        rate = bench_sw.int32_instr_per_s(dev)
+        rate16, per_step, ms = bench_sw.s16x2_instr_per_s(dev)
+        log(f"s16x2 probe: {ms} ms, {per_step} SASS integer instructions a "
+            f"chain step, {rate16 / 1e12} T packed instructions/s measured "
+            f"= {rate16 / rate} of the int32 peak of {rate / 1e12} T (SMs x "
+            f"max SM clock x {bench_sw.INT32_OPS_PER_CLOCK_PER_SM}), at "
+            f"which sw_banded16's bound is stated")
+        _RATES.update(int32=rate, s16x2_measured=rate16)
+    return _RATES
+
+
+def _bound(name, c, scorer, rates) -> tuple:
+    """(bound ms, bound_by, cells) of kernel ``name`` on the inputs ``c``,
+    at the card's peak rates: the cells these inputs need times the fewest
+    instructions a cell admits (tools/bench_sw.MIN_INSTR_PER_CELL: all of
+    them over the SMs' issue slots, those only the integer pipe takes over
+    the int32 rate, whichever takes longer), against the bytes that must
+    move (each candidate's read row and window, its index entries, its
+    output row) over the memory rate."""
     from ema_tpu_torch.tools import bench_sw
 
     cells = _cells(c, scorer)
     N = c["owners"].shape[0]
     rl = c["olens"][c["owners"].long()].long()
     n_bytes = int(rl.sum()) + int(c["win_len"].long().sum()) + N * (20 + 16)
-    ms, by = bench_sw.bound_ms(cells * bench_sw.MIN_INSTR_PER_CELL[name],
-                               n_bytes, rate)
+    every, int_pipe = bench_sw.MIN_INSTR_PER_CELL[name]
+    ms, by = bench_sw.bound_ms(cells * every, cells * int_pipe, n_bytes,
+                               rates["int32"])
     return ms, by, cells
 
 
@@ -459,18 +557,23 @@ def phase_kernel(dev, card: str) -> dict:
                                       gather_score_ref, reset_counts)
     from ema_tpu_torch.tools import bench_sw
 
-    rate = bench_sw.int32_instr_per_s(dev)
+    rate = instr_rates(dev)
     log(f"int32 instruction rate of the card (SMs x max SM clock x "
-        f"{bench_sw.INT32_OPS_PER_CLOCK_PER_SM}): {rate / 1e12} T "
-        f"instructions/s; minimum instructions a cell (hand count, "
-        f"tools/bench_sw.py): {bench_sw.MIN_INSTR_PER_CELL}")
+        f"{bench_sw.INT32_OPS_PER_CLOCK_PER_SM}): {rate['int32'] / 1e12} T "
+        f"instructions/s, issue slots x "
+        f"{bench_sw.SCHED_SLOTS_PER_CLOCK_PER_SM}; minimum instructions a "
+        f"cell (hand count, tools/bench_sw.py: all, and those only the "
+        f"integer pipe takes): {bench_sw.MIN_INSTR_PER_CELL}")
     cases = sw_cases(dev)
     stats = {}
     for name, (scorer, _, _) in KERNELS.items():
         if scorer is None:
             continue                   # the probe: phase_bench_sw
         max_err = 0
-        for cname in KERNEL_CASES[name] or cases:
+        held = KERNEL_CASES[name]
+        if held is None:
+            held = [k for k in cases if not k.startswith("scan_")]
+        for cname in (cases if held == "all" else held):
             c = cases[cname]
             got = _call(gather_score, c, scorer)
             want = _call(gather_score_ref, c, scorer)
@@ -494,25 +597,50 @@ def phase_kernel(dev, card: str) -> dict:
             _call(gather_score, c, scorer)
             per_call = LAUNCHES[name].value
             ms = _time_ms(lambda: _call(gather_score, c, scorer), reps)
+            launch_ms = _kernel_ms(c, scorer, reps)
             plain_ms = _time_ms(lambda: _call(gather_score_ref, c, scorer),
                                 2)
             st.setdefault("ms", ms)
+            st.setdefault("launch_ms", launch_ms)
             st.setdefault("plain_ms", plain_ms)
             st.setdefault("bound_ms", bound)
             st.setdefault("bound_by", by)
-            log(f"{name} [{cname}] N={c['owners'].shape[0]}: kernel {ms} "
-                f"ms in {per_call} launches ({cells / ms / 1e6} Gcell/s), "
+            log(f"{name} [{cname}] N={c['owners'].shape[0]}: wrapper call "
+                f"{ms} ms in {per_call} launches, the launches alone "
+                f"{launch_ms} ms ({cells / launch_ms / 1e6} Gcell/s), "
                 f"plain {plain_ms} ms ({cells / plain_ms / 1e6} Gcell/s), "
                 f"cells={cells}, bound {bound} ms by {by} = "
-                f"{bound / ms} of the kernel's time, library call: none, "
+                f"{bound / launch_ms} of the launches' time, "
+                f"{bound / ms} of the call's, library call: none, "
                 f"card: {card}")
         stats[name] = st
+    _phase_scan_forms(cases, card)
     # the packed tier's shape through the one-warp banded kernel
     c = cases["chained_w64"]
     ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
     log(f"sw_banded [chained_w64] N={c['owners'].shape[0]}: kernel {ms} ms "
         f"({_cells(c, 'banded') / ms / 1e6} Gcell/s), card: {card}")
     return stats
+
+
+def _phase_scan_forms(cases, card: str) -> None:
+    """sw_batch's two group widths against each other on the chained and
+    the rescue set (the launch's own choice is timed by the caller): 8 and
+    32 threads a candidate, each held to the default form's output."""
+    from ema_tpu_torch.ops.sw import gather_score
+
+    for cname in ("chained", "rescue"):
+        c = cases[cname]
+        want = _call(gather_score, c, "scan")
+        row = []
+        for group in (8, 32):
+            check(torch.equal(_form_out(c, "scan", group), want),
+                  f"sw_batch at {group} threads a candidate differs on "
+                  f"{cname}")
+            row.append(f"{group} threads "
+                       f"{_kernel_ms(c, 'scan', 10, group)} ms")
+        log(f"sw_batch thread forms [{cname}] N={c['owners'].shape[0]}, "
+            f"the launch alone: " + ", ".join(row) + f"; card: {card}")
 
 
 # ----------------------------------------------------------------------
@@ -599,6 +727,7 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
     captured = {}
     reset_counts()
     aligner._score_windows = _recording(aligner, captured)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     lines = run()
     torch.cuda.synchronize()
@@ -616,11 +745,14 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
     aligner.metrics = None
 
     best = min(passes)
+    peak = torch.cuda.max_memory_allocated(dev)
     log(f"main path [{label}]: device_em={aligner.cfg.device_em}, "
         f"seed_impl={aligner.seed_impl}, warm-up pass {warm} s, timed "
         f"passes {passes} s, {n_pairs / best} pairs/s (best pass), "
         f"{len(lines)} SAM records, launches over 4 passes={launches}, "
-        f"card: {card}")
+        f"peak device memory over the 4 passes {peak} bytes = "
+        f"{peak / 2**20} MiB (torch.cuda.max_memory_allocated, the index "
+        f"and the aligner's buffers included), card: {card}")
     stages = {}
     if met is not None:
         log("stage split, thread-seconds summed over the 3 timed passes:")
@@ -646,11 +778,19 @@ def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
     """The bench world under each scorer; returns (stats by scorer, the
     default run's SAM lines)."""
     from ema_tpu_torch import native
+    from ema_tpu_torch.core.samout import write_sam_header
     from ema_tpu_torch.ops.sw import gather_score_ref
+    from ema_tpu_torch.utils.samcheck import check_sam
 
     stats = {}
     lines, stats["banded"], recorded = _main_run(
         dev, card, idx, pairs, truth, "banded", metrics=True)
+    header = write_sam_header(idx.names, idx.lengths, None, "smoke", "smoke")
+    faults = check_sam(header.splitlines(keepends=True) + lines)
+    log(f"check_sam over the bench world's default SAM: {len(lines)} "
+        f"records, {len(faults)} faults {faults[:3]}")
+    check(not faults, f"check_sam: {len(faults)} faults in the bench "
+                      f"world's SAM: {faults[:3]}")
     c = recorded["chained"]
     wl = np.maximum(c["wl"] if c["wl"] is not None else c["win_len"], 1)
     nat = native.sw_banded_native(
@@ -697,9 +837,7 @@ def phase_recorded(dev, card: str, idx, recorded) -> None:
     recorded output."""
     from ema_tpu_torch.ops.sw import (LAUNCHES, PACKED_MAX_WL, gather_score,
                                       reset_counts)
-    from ema_tpu_torch.tools import bench_sw
-
-    rate = bench_sw.int32_instr_per_s(dev)
+    rate = instr_rates(dev)
     text = torch.from_numpy(idx.text).to(dev)
     for kind in ("chained", "rescue"):
         r = recorded[kind]
@@ -735,10 +873,13 @@ def phase_recorded(dev, card: str, idx, recorded) -> None:
                       f"{name} differs from the recorded {kind} output")
             bound, by, cells = _bound(name, c, scorer, rate)
             ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
-            log(f"{name} [recorded {kind}] N={keep.shape[0]}: kernel {ms} "
-                f"ms in {per_call} launches ({cells / ms / 1e6} Gcell/s), "
-                f"cells={cells}, bound {bound} ms by {by} = {bound / ms} "
-                f"of the kernel's time, card: {card}")
+            launch_ms = _kernel_ms(c, scorer, 20)
+            log(f"{name} [recorded {kind}] N={keep.shape[0]}: wrapper call "
+                f"{ms} ms in {per_call} launches, the launches alone "
+                f"{launch_ms} ms ({cells / launch_ms / 1e6} Gcell/s), "
+                f"cells={cells}, bound {bound} ms by {by} = "
+                f"{bound / launch_ms} of the launches' time, {bound / ms} "
+                f"of the call's, card: {card}")
     _phase_class_rules(dev, card, text, recorded["chained"], rate)
 
 
@@ -794,17 +935,47 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
                 f"{by}, card: {card}")
     finally:
         sw.SORT_PAYS_SLOTS = default
-    for n in (2048, 4096, LARGE_CLASS - 1, LARGE_CLASS, 8192):
+    for name, scorer in (("sw_banded", "banded"),
+                         ("sw_banded16", "banded16")):
+        for n in (512, 1024, WARP_CALL_132, WARP_CALL_132 + 1, 1536, 2048,
+                  4096, LARGE_CLASS - 1, LARGE_CLASS, 8192):
+            keep = np.arange(min(n, N))
+            c = call_with(np.full(keep.shape[0], 50), keep)
+            check(torch.equal(_call(gather_score, c, scorer),
+                              _call(gather_score_ref, c, scorer)),
+                  f"{name} [wl = 50, N={n}] differs from the plain version")
+            bound, by, cells = _bound(name, c, scorer, rate)
+            ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
+            row = [f"wrapper call {ms} ms",
+                   f"the launch alone {_kernel_ms(c, scorer, 20)} ms"]
+            if scorer == "banded16":
+                row += [f"on {group} threads "
+                        f"{_kernel_ms(c, scorer, 20, group)} ms"
+                        for group in (8, 32)]
+            log(f"{name} [wl = 50] N={keep.shape[0]}: " + ", ".join(row)
+                + f"; cells={cells}, bound {bound} ms by {by}, card: {card}")
+    # sw_batch's two group widths on the recorded call, on both sides of
+    # its size threshold
+    for n in sorted({1, 256, 512, 1024, WARP_CALL_132, WARP_CALL_132 + 1,
+                     1536, 2048, 4096, N}):
         keep = np.arange(min(n, N))
-        c = call_with(np.full(keep.shape[0], 50), keep)
-        check(torch.equal(_call(gather_score, c, "banded"),
-                          _call(gather_score_ref, c, "banded")),
-              f"sw_banded [wl = 50, N={n}] differs from the plain version")
-        bound, by, cells = _bound("sw_banded", c, "banded", rate)
-        ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
-        log(f"sw_banded [wl = 50] N={keep.shape[0]}: kernel {ms} ms "
-            f"({cells / ms / 1e6} Gcell/s), bound {bound} ms by {by} = "
-            f"{bound / ms} of the kernel's time, card: {card}")
+        c = call_with(np.maximum(r["wl"][keep], 1), keep)
+        want = _call(gather_score_ref, c, "scan")
+        check(torch.equal(_call(gather_score, c, "scan"), want),
+              f"sw_batch [recorded chained, N={n}] differs from the plain "
+              f"version")
+        ms = _time_ms(lambda: _call(gather_score, c, "scan"), 20)
+        row = [f"wrapper call {ms} ms",
+               f"the launch alone {_kernel_ms(c, 'scan', 20)} ms"]
+        for group in (8, 32):
+            check(torch.equal(_form_out(c, "scan", group), want),
+                  f"sw_batch at {group} threads differs (N={n})")
+            row.append(f"on {group} threads "
+                       f"{_kernel_ms(c, 'scan', 20, group)} ms")
+        bound, by, cells = _bound("sw_batch", c, "scan", rate)
+        log(f"sw_batch [recorded chained] N={keep.shape[0]}: "
+            + ", ".join(row) + f"; cells={cells}, bound {bound} ms by {by}, "
+            f"card: {card}")
 
 
 def phase_device_em(dev, card: str, idx, pairs, truth,
@@ -833,6 +1004,11 @@ def phase_device_em(dev, card: str, idx, pairs, truth,
         emit_s = [st["stages"].get("select+emit[host]", 0.0)
                   for st in runs[dem]]
         out[dem] = dict(median=statistics.median(rates), em_s=em_s)
+        names = sorted({k for st in runs[dem] for k in st["stages"]})
+        log(f"stage table, device_em={dem}, thread-seconds per pass (mean "
+            f"of the 3 timed passes of each of {len(runs[dem])} runs): "
+            + ", ".join(f"{k} {[st['stages'].get(k, 0.0) for st in runs[dem]]}"
+                        for k in names))
         log(f"in turns, device_em={dem}: median {out[dem]['median']} "
             f"pairs/s over {len(rates)} passes {sorted(rates)}, {stage} "
             f"thread-s per pass {em_s}, select+emit[host] {emit_s}, "
@@ -888,16 +1064,29 @@ def phase_profile(dev, card: str, idx, pairs) -> float:
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
 
+    from ema_tpu_torch.core import pipeline as tp
+
     aligner = Aligner(idx, config.RunConfig(), device=dev)
     batch = ReadBatch.from_pairs(*pairs)
     aligner.align_batch_to_sam(batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        aligner.align_batch_to_sam(batch)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+    em_batches = []               # EM-gated groups of each emit batch
+    dispatch = tp.dispatch_em_batch
+
+    def counting(states, *a, **kw):
+        em_batches.append(sum(1 for st in states if st.needs_em))
+        return dispatch(states, *a, **kw)
+
+    tp.dispatch_em_batch = counting
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            aligner.align_batch_to_sam(batch)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        tp.dispatch_em_batch = dispatch
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
@@ -922,6 +1111,20 @@ def phase_profile(dev, card: str, idx, pairs) -> float:
         log(f"profile: stream {st} ({'SW' if st in sw_streams else 'other'}"
             f"): {len(streams[st])} device events, busy "
             f"{_span(iv) / 1e3} ms")
+    # the EM's launches: every device event (kernel, copy, memset) on a
+    # stream that runs no SW kernel, which is the EM's side stream
+    em_events = [e for e in events
+                 if e.get("args", {}).get("stream") not in sw_streams]
+    by_cat = {cat: sum(e["cat"] == cat for e in em_events)
+              for cat in ("kernel", "gpu_memcpy", "gpu_memset")}
+    n_b = max(len(em_batches), 1)
+    log(f"profile: EM launches in one pass: {len(em_events)} device events "
+        f"on the EM's stream ({by_cat}) in {len(em_batches)} emit batches "
+        f"of {em_batches} EM-gated groups = {len(em_events) / n_b} per emit "
+        f"batch; the SW streams carry {len(events) - len(em_events)} "
+        f"events")
+    check(aligner.cfg.device_em and em_events,
+          "the profiled pass ran no device EM")
     idle = 1.0 - busy / wall
     log(f"profile [device_em={aligner.cfg.device_em}]: pass {wall} s, "
         f"device busy {busy * 1e3} ms, idle share {idle}; the other "
@@ -1299,15 +1502,17 @@ def phase_bench_sw(dev, card: str) -> dict:
     from ema_tpu_torch.tools import bench_sw
 
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
-    want = probe.alu_probe_ref(x, bench_sw.K_CHECK, probe.UNROLL_TPU)
     err = 0
     for form in probe.FORMS:
+        ref = (probe.alu_probe_s16x2_ref if form == "s16x2"
+               else probe.alu_probe_ref)
+        want = ref(x, bench_sw.K_CHECK, probe.UNROLL_TPU)
         got = probe.alu_probe(x, bench_sw.K_CHECK, probe.UNROLL_TPU, form)
         err = max(err, int((got.long() - want.long()).abs().max()))
         check(torch.equal(got, want), f"alu_probe ({form}) differs from "
-                                      f"alu_probe_ref on [8, 128]")
+                                      f"its plain version on [8, 128]")
     log(f"alu_probe vs plain [8, 128], K={bench_sw.K_CHECK} x "
-        f"{probe.UNROLL_TPU}, both forms: max_abs_err={err}")
+        f"{probe.UNROLL_TPU}, forms {probe.FORMS}: max_abs_err={err}")
     probe.LAUNCHES.reset()
     art = bench_sw.run(dev)
     launches = probe.LAUNCHES.value
@@ -1324,18 +1529,29 @@ def phase_bench_sw(dev, card: str) -> dict:
         f"packed vs wl-masked plain="
         f"{art['packed_bit_exact_vs_wl_masked_ref']}; probe launches "
         f"{launches}; card: {card}")
+    for label, v in art["cell_loops"].items():
+        log(f"SASS instructions a cell [{label}]: {v['sass_instr_per_cell']}"
+            f" ({v['loop']} in the loop over {v['cells_per_pass']} cells; "
+            f"{v['sass_imad_per_cell']} of them IMAD; hand count, all and "
+            f"integer pipe only, {v['hand_count']})")
+    log(f"s16x2 operations, SASS instructions each: "
+        + ", ".join(f"{k} {v['instructions']}"
+                    for k, v in art["s16x2_forms"].items())
+        + f"; probe s16x2 form {art['s16x2_int32_instr_tera_per_s']} T "
+        f"packed instructions/s, bit-exact against its plain version")
     log("bench_sw artifact: " + json.dumps(art))
     check(art["bit_exact_across_variants"]
           and art["packed_bit_exact_vs_wl_masked_ref"],
           "bench_sw variants disagree")
     check(launches > 0, "the bench tool never launched alu_probe")
     # the probe's bound at its K_CHECK run: the chain steps times the two
-    # instructions ptxas emits for a step, over the card's int32 rate
+    # instructions ptxas emits for a step (a LOP3 and a VIADDMNMX, both
+    # the integer pipe's), over the card's int32 rate
     steps = probe.probe_ops(art["probe_elements"], bench_sw.K_CHECK,
                             probe.UNROLL_TPU) // 3
-    bound, by = bench_sw.bound_ms(
-        steps * bench_sw.PROBE_INSTR_PER_STEP, 8 * art["probe_elements"],
-        art["int32_tops_theoretical"] * 1e12)
+    instr = steps * bench_sw.PROBE_INSTR_PER_STEP
+    bound, by = bench_sw.bound_ms(instr, instr, 8 * art["probe_elements"],
+                                  art["int32_tops_theoretical"] * 1e12)
     log(f"alu_probe at K={bench_sw.K_CHECK}: kernel "
         f"{art['alu_k_check_ms']} ms, bound {bound} ms by {by} "
         f"({steps} steps x {bench_sw.PROBE_INSTR_PER_STEP} instructions) = "
@@ -1344,8 +1560,8 @@ def phase_bench_sw(dev, card: str) -> dict:
         f"the theoretical {art['int32_tops_theoretical']}; library call: "
         f"none; card: {card}")
     return dict(launches=launches,
-                max_abs_err=max(err, art["alu_max_abs_err"],
-                                art["dpx_max_abs_err"]),
+                max_abs_err=max(err, *(art[f"{f}_max_abs_err"]
+                                       for f in probe.FORMS)),
                 ms=art["alu_k_check_ms"], plain_ms=art["alu_probe_plain_ms"],
                 bound_ms=bound, bound_by=by)
 
@@ -1412,6 +1628,7 @@ def phase_x(dev, card: str, genome, pairs, truth, bc_strs) -> dict:
     from ema_tpu_torch import config
     from ema_tpu_torch.cli import _load_or_build_index
     from ema_tpu_torch.core.samout import write_sam_header
+    from ema_tpu_torch.utils.samcheck import check_sam
     from ema_tpu_torch.utils.samdiff import diff_sams
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
@@ -1489,6 +1706,12 @@ def phase_x(dev, card: str, genome, pairs, truth, bc_strs) -> dict:
             log(f"-x [{label}]: {dt} s for {n_pairs} pairs = "
                 f"{rates[label]} pairs/s (index load included), sw_banded "
                 f"launches {n}, card: {card}")
+        with open(out("coal_man")) as f:
+            faults = check_sam(f.readlines())
+        log(f"check_sam over the -x run's SAM: {len(faults)} faults "
+            f"{faults[:3]}")
+        check(not faults, f"check_sam: {len(faults)} faults in the -x "
+                          f"run's SAM: {faults[:3]}")
         ref_body = bodies["coalesced+manifest"]
         for label, b in bodies.items():
             log(f"-x [{label}]: {len(b)} records, identical to the "
@@ -1728,7 +1951,10 @@ def main() -> int:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches[name],
         "max_abs_err": kstats[name]["max_abs_err"],
-        "ms": kstats[name]["ms"], "plain_ms": kstats[name]["plain_ms"],
+        # ms: the wrapper's call; launch_ms: its kernel launches alone
+        "ms": kstats[name]["ms"],
+        "launch_ms": kstats[name].get("launch_ms", kstats[name]["ms"]),
+        "plain_ms": kstats[name]["plain_ms"],
         "bound_ms": kstats[name]["bound_ms"],
         "bound_by": kstats[name]["bound_by"],
         # no PyTorch call computes a banded affine-gap Smith-Waterman with

@@ -195,7 +195,7 @@ class Aligner:
         # is applied after the cross-shard merge
         self._defer_dist_window = False
         # optional (batch, CandidateSet) tap for the reference-oracle
-        # replay (ema_tpu/utils/replay.ReplayWriter.add); called from the
+        # replay (ema_tpu_torch/utils/replay.ReplayWriter.add); called from the
         # chunk workers, so a sink must be thread-safe
         self.replay_sink = None
         # optional fine-grained stage timers (utils/metrics.Metrics);

@@ -189,3 +189,14 @@ def iter_fastq_pair_groups(fq1_path: str, fq2_path: str | None,
         n += 1
     if ids:
         yield ids, bcs, s1, q1, s2, q2
+
+
+def read_fai(path: str) -> List[str]:
+    """Chromosome name table from a .fai (main.c:57-71)."""
+    names = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                names.append(line.split()[0])
+    return names

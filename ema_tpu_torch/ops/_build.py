@@ -9,9 +9,10 @@ later calls (and later processes) load the cached library.
 source.  A failed build raises; there is no fallback.
 
 Each library exports ``<name>_launch`` with the argument types that
-``KERNELS`` gives it (the SW signature, sw_banded's with its
-permutation, or the ALU probe's) and, for the
-banded kernels, ``<name>_max_wl``.
+``KERNELS`` gives it (the SW signature, the one with a permutation of
+sw_banded and sw_banded16, or the ALU probe's; sw_batch and sw_banded16
+take a thread form after max_wl, 0 for the launch's own choice) and, for
+the banded kernels, ``<name>_max_wl``.
 """
 
 from __future__ import annotations
@@ -34,14 +35,24 @@ _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
 #  max_wl, match, mismatch, gap_open, gap_extend, clip, out, stream)
 SW_ARGTYPES = [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i64, _i32,
                _i32, _i32, _i32, _i32, _i32, _p, _p]
-# sw_banded: (..., wl, perm, perm_off, N, max_wl, ...): slot c scores
-# candidate perm[perm_off + c]
+# sw_banded, sw_banded16: (..., wl, perm, perm_off, N, max_wl, ...): slot
+# c scores candidate perm[perm_off + c]
 SW_BANDED_ARGTYPES = SW_ARGTYPES[:9] + [_p, _i64] + SW_ARGTYPES[9:]
-# (x, out, n, K, unroll, dpx, stream)
+
+
+def _with_group(argtypes):
+    """sw_batch, sw_banded16: (..., max_wl, group, match, ...)."""
+    at = argtypes.index(_i32) + 1
+    return argtypes[:at] + [_i32] + argtypes[at:]
+
+
+# (x, out, n, K, unroll, form, stream)
 PROBE_ARGTYPES = [_p, _p, _i64, _i32, _i32, _i32, _p]
 # kernel -> the argument types of its <name>_launch
-KERNELS = {"sw_banded": SW_BANDED_ARGTYPES, "sw_banded16": SW_ARGTYPES,
-           "sw_banded_packed": SW_ARGTYPES, "sw_batch": SW_ARGTYPES,
+KERNELS = {"sw_banded": SW_BANDED_ARGTYPES,
+           "sw_banded16": _with_group(SW_BANDED_ARGTYPES),
+           "sw_banded_packed": SW_ARGTYPES,
+           "sw_batch": _with_group(SW_ARGTYPES),
            "alu_probe": PROBE_ARGTYPES}
 
 _lock = threading.Lock()

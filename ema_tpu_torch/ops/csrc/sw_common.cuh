@@ -1,6 +1,7 @@
 // Pieces shared by the port's Smith-Waterman kernels (sw_banded.cu,
 // sw_banded16.cu, sw_banded_packed.cu, sw_batch.cu): the scoring scheme,
 // the fused window gather and the rule that picks the best cell.
+// alu_probe.cu takes prmt from here.
 #pragma once
 
 #include <cstdint>
@@ -15,6 +16,21 @@ struct Scoring {
     int32_t match, mismatch, gap_open, gap_extend, clip;
 };
 
+// SMs of the current device (132 where the query fails), read once: the
+// launches of sw_batch.cu and sw_banded16.cu pick a thread form by the
+// candidates a call holds for each SM
+inline int64_t sm_count() {
+    static const int n = [] {
+        int dev = 0, sms = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess
+            || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev) != cudaSuccess || sms <= 0)
+            return 132;
+        return sms;
+    }();
+    return n;
+}
+
 // read base rc against window base fc; any code >= 4 scores -1
 __device__ __forceinline__ int32_t sub_score(int32_t rc, int32_t fc,
                                              const Scoring &p) {
@@ -25,6 +41,17 @@ __device__ __forceinline__ int32_t sub_score(int32_t rc, int32_t fc,
 __device__ __forceinline__ int32_t text_at(const uint8_t *__restrict__ text,
                                            int64_t text_n, int64_t c) {
     return (c >= 0 && c < text_n) ? (int32_t)text[c] : 5;
+}
+
+// prmt.b32 in its generic form: nibble n of `c` picks output byte n from
+// the bytes of a (0-3) and b (4-7); with the nibble's bit 3 set the byte's
+// sign bit is spread over the output byte instead.  (__byte_perm keeps
+// only the three index bits of each nibble.)
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t c) {
+    uint32_t d;
+    asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
 }
 
 // The final pick of every kernel: the higher score, then the smaller

@@ -13,9 +13,10 @@ ema_tpu/core/pipeline.py:_gather_score fused in:
   packed    csrc/sw_banded_packed.cu  _banded_kernel_packed   wl <= 64
   scan      csrc/sw_batch.cu          _kernel                 whole window
 
-On CUDA tensors the scorer's kernel launches (``banded`` once per
-corridor-width class of the call, see ``plan_class_launches``); on CPU
-tensors its plain version runs.  A CUDA tensor never runs the plain
+On CUDA tensors the scorer's kernel launches (``banded`` and ``banded16``
+once per corridor-width class of the call, see ``plan_class_launches``;
+``scan`` with the threads a candidate that the call's longest read and
+its size call for); on CPU tensors its plain version runs.  A CUDA tensor never runs the plain
 version, and a failed build or launch raises.
 
 The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
@@ -94,6 +95,14 @@ def _check_int16_range(m, w_band, match, mismatch, gap_open, gap_extend,
     if top >= -NEG16 // 2:
         raise ValueError(f"banded16: scores would leave the int16 range "
                          f"(m={m}, w_band={w_band})")
+
+
+def _check_byte_scores(name, match, mismatch) -> None:
+    """sw_batch and sw_banded16 look the substitution score up as a
+    signed byte; gather_score holds the CPU to the same limit."""
+    if not (-127 <= match <= 127 and -127 <= mismatch <= 127):
+        raise ValueError(f"{name}: match and mismatch must fit a signed "
+                         f"byte (got {match}, {mismatch})")
 
 
 def _row_sweep(reads, read_lens, refs, ref_lens, W, wl, dtype, neg, *,
@@ -408,9 +417,9 @@ def _check(name, t, dtype, ndim, dev):
                          f"{t.device})")
 
 
-# Upper corridor widths of sw_banded's width classes (the table in
-# csrc/sw_banded.cu, which also picks each class's threads per candidate
-# from its size).  The usual chained corridor is 2 x 24 + 2 lanes plus the
+# Upper corridor widths of the width classes of sw_banded and sw_banded16
+# (the tables in csrc/sw_banded.cu and csrc/sw_banded16.cu, which also
+# pick each class's threads per candidate from its size).  The usual chained corridor is 2 x 24 + 2 lanes plus the
 # chain's diagonal spread, 50 to about 60 with small indels: one class
 # holds 33..64, so such a call stays one class.  96 splits the 65..128
 # range, whose narrow half runs faster on 16 threads x 6 lanes than on a
@@ -486,7 +495,8 @@ def plan_class_launches(wl: torch.Tensor, w_lo: int, w_hi: int,
 def gather_score_by_class_ref(text, oriented, olens, owners, win_lo,
                               win_len, wl, *, edges=BANDED_CLASS_EDGES,
                               sort_pays=None, **kw) -> torch.Tensor:
-    """Plain version of sw_banded's class launches: the candidates go
+    """Plain version of the class launches of sw_banded and sw_banded16
+    (``scorer`` in ``kw``): the candidates go
     through ``plan_class_launches`` as the kernel's do, each class is
     scored by ``gather_score_ref`` on its own, and row ``perm[c]`` of the
     result takes slot ``c``'s output, so the result is in the caller's
@@ -506,8 +516,18 @@ def gather_score_by_class_ref(text, oriented, olens, owners, win_lo,
     return out
 
 
-def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
-                   scorer, match, mismatch, gap_open, gap_extend, clip):
+def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
+                 scorer, match=1, mismatch=4, gap_open=6, gap_extend=1,
+                 clip=5, group=0):
+    """``(out, launch)`` for CUDA tensors: the checks, the one readback of
+    the bounds the kernel trusts and the plan of the scorer's launches are
+    made here; ``launch()`` queues the kernel launches that fill ``out``
+    (int32 [N, 4]) on the current stream, adds them to ``LAUNCHES`` and may
+    be called again.  ``gather_score`` is ``_plan_kernel`` then
+    ``launch()``.  chip_smoke.py times ``launch`` alone, without the plan's
+    readback, and passes ``group`` (8 or 32 threads; scan and banded16
+    only) to time one thread form against the other; 0 leaves the choice
+    to the launch, and nothing else passes another value."""
     from ema_tpu_torch.ops import _build
 
     name = KERNEL_OF[scorer]
@@ -517,7 +537,7 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     lib = _build.load_library(name)
     out = torch.empty((N, 4), dtype=torch.int32, device=dev)
     if N == 0:
-        return out
+        return out, lambda: None
     _check_read_len(L)
     owners = owners.to(torch.int32).contiguous()
     win_lo = win_lo.to(torch.int64).contiguous()
@@ -528,15 +548,18 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     # bounds the kernel trusts: one readback, checked here, on the host,
     # before launch
     host = [*torch.aminmax(owners)]
-    if scorer != "scan":           # scan scores the whole window
+    if scorer == "scan":           # scores the whole window: wl unread
+        host.append(olens.max())   # the longest read picks the thread form
+    else:
         max_wl = lib.max_wl()
         host += torch.aminmax(wl)
     host = torch.stack(host).tolist()
     o_lo, o_hi = host[:2]
     if o_lo < 0 or o_hi >= R:
         raise ValueError(f"gather_score: owners out of range [0, {R})")
-    w_hi = 0
-    if scorer != "scan":
+    if scorer == "scan":
+        max_rl = min(max(host[2], 0), L)
+    else:
         w_lo, w_hi = host[2:4]
         if w_lo < 1 or w_hi > max_wl:
             raise ValueError(f"gather_score: wl must lie in [1, {max_wl}] "
@@ -545,29 +568,39 @@ def _launch_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
         if scorer == "banded16":
             _check_int16_range(L, w_hi, match, mismatch, gap_open,
                                gap_extend, clip)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        head = (text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
-                olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
-                win_len.data_ptr(), wl.data_ptr())
-        tail = (match, mismatch, gap_open, gap_extend, clip, out.data_ptr(),
-                stream)
-        if scorer == "banded":
-            # one launch per non-empty width class, each on its span of
-            # the permutation (the kernel writes out[perm[slot]]); perm
-            # is kept alive until the launches below are queued
-            perm, spans = plan_class_launches(wl, w_lo, w_hi)
-            perm_ptr = None if perm is None else perm.data_ptr()
-            launches = [(perm_ptr, off, n, edge) for edge, off, n in spans]
-        else:
-            launches = [(N, w_hi)]
-        for args in launches:
-            rc = lib.launch(*head, *args, *tail)
-            if rc != 0:
-                raise RuntimeError(f"{name} kernel launch failed: CUDA "
-                                   f"error {rc}")
-            LAUNCHES[name].add()
-    return out
+    if group and scorer not in ("scan", "banded16"):
+        raise ValueError(f"gather_score: {name} has one thread form a call")
+    perm = None
+    if scorer in ("banded", "banded16"):
+        # one launch per non-empty width class, each on its span of the
+        # permutation (the kernel writes out[perm[slot]])
+        perm, spans = plan_class_launches(wl, w_lo, w_hi)
+        perm_ptr = None if perm is None else perm.data_ptr()
+        form = (group,) if scorer == "banded16" else ()
+        launches = [(perm_ptr, off, n, edge, *form)
+                    for edge, off, n in spans]
+    elif scorer == "scan":
+        launches = [(N, max_rl, group)]
+    else:
+        launches = [(N, w_hi)]
+    # the tensors whose pointers the launches carry stay alive with it
+    held = (text, oriented, olens, owners, win_lo, win_len, wl, perm, out)
+    head = (text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
+            olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
+            win_len.data_ptr(), wl.data_ptr())
+    tail = (match, mismatch, gap_open, gap_extend, clip, out.data_ptr())
+
+    def launch(_held=held) -> None:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            for args in launches:
+                rc = lib.launch(*head, *args, *tail, stream)
+                if rc != 0:
+                    raise RuntimeError(f"{name} kernel launch failed: CUDA "
+                                       f"error {rc}")
+                LAUNCHES[name].add()
+
+    return out, launch
 
 
 def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
@@ -579,7 +612,9 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
     owners int32 [N], win_lo int64 [N], win_len int32 [N], wl int32 [N],
     all on one device.  ``scorer`` is one of banded, banded16, packed
     (wl <= 64) or scan (wl ignored).  CUDA: the scorer's kernel; CPU: its
-    plain version.
+    plain version.  Under scan and banded16 ``match`` and ``mismatch`` must
+    lie within +-127 on either device: their kernels look the substitution
+    score up as a signed byte.
     """
     if scorer not in KERNEL_OF:
         raise ValueError(f"gather_score: unknown scorer {scorer!r} (one of "
@@ -596,9 +631,13 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
               gap_open=gap_open, gap_extend=gap_extend, clip=clip)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"gather_score: unsupported device {dev}")
+    if scorer in ("scan", "banded16"):
+        _check_byte_scores(KERNEL_OF[scorer], match, mismatch)
     CALLS[scorer].add()
     if dev.type == "cuda":
-        return _launch_kernel(text, oriented, olens, owners, win_lo,
-                              win_len, wl, **kw)
+        out, launch = _plan_kernel(text, oriented, olens, owners, win_lo,
+                                   win_len, wl, **kw)
+        launch()
+        return out
     return gather_score_ref(text, oriented, olens, owners, win_lo,
                             win_len, wl, **kw)

@@ -1,10 +1,13 @@
 """Two checkouts of this repository in turns on one card: the SW kernels'
-times (chip_smoke.phase_kernel), the bench world's pairs/s under the
-default scorer (chip_smoke._main_run) and sw_banded's time on the chained
-call that run recorded, A, B, B, A.
+times on the synthetic chained and rescue sets (chip_smoke.sw_cases), the
+bench world's pairs/s under the default scorer (chip_smoke._main_run) and
+the times of sw_banded, sw_banded16 and sw_batch on the chained call that
+run recorded, A, B, B, A.  Every kernel time is given twice: the wrapper's
+call (CUDA events around gather_score, which also pays its checks and the
+readback of the bounds) and the SW kernels alone (torch.profiler).
 
     python -m ema_tpu_torch.tools.ab_smoke DIR_A DIR_B [--skip-kernel]
-        [--skip-main] [--rounds=N]
+        [--skip-main] [--rounds=N] [--sass]
 
 Two versions are compared only inside one call, on one card: each turn
 is a subprocess started in that checkout, so it builds and loads that
@@ -12,9 +15,12 @@ checkout's kernels and native library and nothing of the other's.  A
 checkout is any directory with a ``chip_smoke.py`` and its
 ``ema_tpu_torch`` (for a parent commit: ``git archive <commit> | tar -x -C
 DIR``); ``--rounds=N`` repeats the four turns N times.  Prints each
-turn's numbers, then both sides' sw_banded times and
-pass rates side by side with the card's name and power limit.  Fails if
-a turn fails.
+turn's numbers, then both sides' kernel times and pass rates side by side
+with the card's name and power limit.  Fails if a turn fails.  ``--sass``
+first builds sw_batch.cu and sw_banded16.cu of both checkouts and prints,
+for every instantiation, the SASS instructions of its main loop over the
+cells one pass covers per thread (its first template argument: rows a
+thread for sw_batch, registers of two lanes for sw_banded16).
 """
 
 from __future__ import annotations
@@ -37,27 +43,61 @@ dev = resolve_device("cuda")
 card = gpu_info()
 _build.load_all()
 res = {"card": card}
+from ema_tpu_torch.ops.sw import gather_score
+from torch.profiler import ProfilerActivity, profile
+SCORERS = ("banded", "banded16", "scan")
+SW_KERNELS = ("rowsweep_kernel", "sw_banded16_kernel", "sw_batch_kernel")
+
+
+def timed(fn, reps):
+    # [ms of a wrapper call (CUDA events), ms of its SW kernels alone
+    # (torch.profiler's device time of the kernels named SW_KERNELS)]: the
+    # call also pays the wrapper's checks and readback, in any checkout
+    call_ms = cs._time_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if any(k in e.key for k in SW_KERNELS):
+            us += getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+    return [call_ms, us / reps / 1e3]
+
+
 if "kernel" in want:
-    res["kernel"] = {k: {f: v[f] for f in ("ms", "plain_ms")}
-                     for k, v in cs.phase_kernel(dev, card).items()}
+    # each kernel at its pipeline shape and on the rescue set (the packed
+    # tier on its wl <= 64 half), 20 and 10 launches after a warm-up
+    cases = cs.sw_cases(dev)
+    res["kernel"] = {}
+    for scorer, names in (("banded", ("chained", "rescue")),
+                          ("banded16", ("chained", "rescue")),
+                          ("packed", ("chained_w64",)),
+                          ("scan", ("chained", "rescue"))):
+        for cname in names:
+            c = cases[cname]
+            reps = 20 if cname.startswith("chained") else 10
+            res["kernel"][f"{scorer} {cname}"] = timed(
+                lambda: cs._call(gather_score, c, scorer), reps)
+    del cases
 if "main" in want:
     genome, pairs, truth, _ = cs.bench_world()
     idx = ema_tpu_torch.build_index({"chr1": genome})
     _, st, rec = cs._main_run(dev, card, idx, pairs, truth, "banded")
     res["main"] = {"passes": st["passes"], "n_pairs": len(pairs[0]),
                    "launches": st["launches"]}
-    # this checkout's sw_banded on the chained call its own run recorded
+    # this checkout's kernels on the chained call its own run recorded
     # (an older checkout records one flat call, the first, a chained one)
     import numpy as np
-    from ema_tpu_torch.ops.sw import gather_score
     c = rec.get("chained", rec)
     put = lambda a, t: torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
     args = (torch.from_numpy(idx.text).to(dev), c["oriented_dev"],
             c["olens_dev"], put(c["owners"], np.int32),
             put(c["win_lo"], np.int64), put(c["win_len"], np.int32),
             put(np.maximum(c["wl"], 1), np.int32))
-    ms = cs._time_ms(lambda: gather_score(*args, scorer="banded",
-                                          **cs.SW_KW), 20)
+    ms = {s: timed(lambda: gather_score(*args, scorer=s, **cs.SW_KW), 20)
+          for s in SCORERS}
     rl = c["olens_dev"].cpu().numpy()[c["owners"]].astype(np.int64)
     res["recorded"] = {"ms": ms, "N": int(len(c["owners"])),
                        "cells": int((rl * np.maximum(c["wl"], 1)).sum()),
@@ -77,6 +117,35 @@ def run_turn(path: str, want: str) -> dict:
     return json.loads(line[-1][len("AB_RESULT "):])
 
 
+def print_sass(sides: dict) -> None:
+    """The main-loop SASS instruction counts of both checkouts' sw_batch
+    and sw_banded16, built here with this checkout's flags."""
+    import os
+    import tempfile
+
+    from ema_tpu_torch.ops import _build
+    from ema_tpu_torch.tools import bench_sw
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for side, path in sides.items():
+            for kernel, lanes in (("sw_batch", 1), ("sw_banded16", 2)):
+                so = os.path.join(tmp, f"{side}_{kernel}.so")
+                src = os.path.join(path, "ema_tpu_torch", "ops", "csrc",
+                                   f"{kernel}.cu")
+                subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
+                                src], check=True, capture_output=True)
+                loops = bench_sw.sass_loops_in(so, f"{kernel}_kernel")
+                for args, loop in sorted(loops.items()):
+                    first = int(args.split("E")[0].lstrip("Li"))
+                    cells = first * lanes
+                    per = (None if loop["loop"] is None
+                           else loop["loop"] / cells)
+                    print(f"{side} {path} sass {kernel}<{args}>: "
+                          f"{loop['loop']} instructions in the loop of "
+                          f"{loop['total']} / {cells} cells = {per} a cell; "
+                          f"{loop['loop_opcodes']}", flush=True)
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     flags = [a for a in argv if a.startswith("--")]
@@ -84,12 +153,15 @@ def main(argv=None) -> int:
     rounds = [int(f.split("=", 1)[1]) for f in flags
               if f.startswith("--rounds=")]
     flags = [f for f in flags if not f.startswith("--rounds=")]
-    if len(dirs) != 2 or set(flags) - {"--skip-kernel", "--skip-main"}:
+    if len(dirs) != 2 or set(flags) - {"--skip-kernel", "--skip-main",
+                                       "--sass"}:
         sys.stderr.write(__doc__)
         return 1
     want = ",".join(p for p in ("kernel", "main")
                     if f"--skip-{p}" not in flags)
     sides = {"A": dirs[0], "B": dirs[1]}
+    if "--sass" in flags:
+        print_sass(sides)
     turns = {"A": [], "B": []}
     for side in "ABBA" * (rounds[-1] if rounds else 1):
         print(f"=== turn {side}: {sides[side]}", flush=True)
@@ -99,15 +171,14 @@ def main(argv=None) -> int:
         got = turns[side]
         if "kernel" in want:
             for k in sorted(got[0]["kernel"]):
-                print(f"{side} {sides[side]} {k}: kernel ms "
-                      f"{[t['kernel'][k]['ms'] for t in got]}, plain ms "
-                      f"{[t['kernel'][k]['plain_ms'] for t in got]}, "
-                      f"card: {card}")
+                print(f"{side} {sides[side]} {k}: [call ms, kernels ms] "
+                      f"{[t['kernel'][k] for t in got]}, card: {card}")
         if "main" in want:
             rates = [t["main"]["n_pairs"] / p for t in got
                      for p in t["main"]["passes"]]
-            print(f"{side} {sides[side]} sw_banded on its recorded chained "
-                  f"call: {[t['recorded'] for t in got]}, card: {card}")
+            print(f"{side} {sides[side]} [call ms, kernels ms] by scorer on "
+                  f"its recorded chained call: "
+                  f"{[t['recorded'] for t in got]}, card: {card}")
             print(f"{side} {sides[side]} bench world, default scorer: median "
                   f"{statistics.median(rates)} pairs/s over {len(rates)} "
                   f"passes {sorted(rates)}, sw_banded launches over 4 "

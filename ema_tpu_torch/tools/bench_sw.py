@@ -17,7 +17,9 @@ the JAX tool's name where it has one:
   banded-scan        sw_score_banded_ref, the plain row sweep, same device
   scan               sw_score_batch_ref, the plain anti-diagonal sweep
   banded-packed-ref  the wl-masked plain sweep, banded-packed's contract
-  vpu-probe          the int32 ALU probe (ops/probe.py), alu and dpx forms
+  vpu-probe          the int32 ALU probe (ops/probe.py), alu, dpx and s16x2
+                     forms; what each s16x2 operation compiles to; the
+                     SASS instructions a cell of the SW kernels' loops
   wl-sample          corridor widths of the port's Aligner on a 400 kbp
                      world, from a chaining.chain_hits spy
 
@@ -82,34 +84,46 @@ BANDED_OPS_PER_CELL = 102
 # start row the outputs need is that one instruction and one select on
 # its predicate, not max + compare + select.  VIADDMNMX (max(a + b, c))
 # and VIMNMX3 (max(a, b, c)) give no predicate, so they save nothing
-# where a start row follows the maximum, which is everywhere here.
-#   sub-score: rc == fb compare, select match / -mismatch, the N test
-#     (fb >= 4 or-ed with the row's rc >= 4 in one compare), select -1   4
-#   Hd = max(H[i-1][k], fresh) + sub: max with predicate, add            2
-#     its start row: select                                              1
-#   F = max(H[i-1][k+1] - go - ge, F[i-1][k+1] - ge): 2 adds, max        3
-#     its start row: select                                              1
-#   H0 = max(Hd, F) and its start row: max, select                       2
-#   scan value H0 + k ge, k ge a per-lane constant: add                  1
-#   running horizontal prefix (value, start): max, select                2
-#   E = P - (k ge + go), the subtrahend a per-lane constant              1
-#   EF = max(E, F) and its start: max, select                            2
+# where a start row follows the maximum, which is everywhere here.  (As
+# compiled for sm_90a, __vibmax_s32 comes out as ISETP + SEL, three
+# instructions with the start row's select: ``cell_loops`` and
+# ``s16x2_forms`` print what ptxas emits beside this count.)  Each line
+# gives all its instructions and, of them, the adds: an add can issue as
+# an IMAD on the multiply-add pipe, beside the integer pipe that every
+# compare, min/max, select, bitwise op and byte permute needs.
+#   sub-score: one byte permute of a word of four score bytes (one per
+#     base of the row or column; all -1 for an N) by the other side's
+#     selector, as sw_batch.cu and sw_banded16.cu do it              1, 0
+#   Hd = max(H[i-1][k], fresh) + sub: max with predicate, add        2, 1
+#     its start row: select                                          1, 0
+#   F = max(H[i-1][k+1] - go - ge, F[i-1][k+1] - ge): 2 adds, max    3, 2
+#     its start row: select                                          1, 0
+#   H0 = max(Hd, F) and its start row: max, select                   2, 0
+#   scan value H0 + k ge, k ge a per-lane constant: add              1, 1
+#   running horizontal prefix (value, start): max, select            2, 0
+#   E = P - (k ge + go), the subtrahend a per-lane constant          1, 1
+#   EF = max(E, F) and its start: max, select                        2, 0
 #   H = max(Hd, EF) and its start (diag >= horizontal >= vertical):
-#     max, select                                                        2
-#   best cell of the lane: max with predicate, 2 selects (row, start)    3
-# 24 a cell.  Not counted, because the function does not need them per
+#     max, select                                                    2, 0
+#   best cell of the lane: max with predicate, 2 selects (row, start;
+#     or, per row, column and start packed: an or and a select)      3, 0
+# 21 a cell, 5 of them adds, so 16 for the integer pipe.  Not counted,
+# because the function does not need them per
 # cell: validity (i + k <= nl is a prefix of a row's lanes, and always
 # true where the window holds rl + wl columns, as every chained call's
 # does), the NEG kept in invalid H and F, the end-of-read adjustment (0
 # on the last row, -clip on every other: the last row can be offered
 # apart), and the window base of the next row (a move that belongs to a
 # register layout).  The s16x2 kernel is counted at two cells an
-# instruction (12 a cell), select on two predicates included.  The
+# instruction (10.5 and 8 a cell), select on two predicates included, at
+# the int32 rates: the probe's s16x2 form measures 97% of them.  The
 # whole-window scorer has no corridor scan: its horizontal gap is
-# E = max(H[i][j-1] - go - ge, E[i][j-1] - ge) with its start (4) in
-# place of H0, the scan value, the prefix and E (2 + 1 + 2 + 1): 22.
-MIN_INSTR_PER_CELL = {"sw_banded": 24, "sw_banded16": 12,
-                      "sw_banded_packed": 24, "sw_batch": 22}
+# E = max(H[i][j-1] - go - ge, E[i][j-1] - ge) with its start (4, 2 of
+# them adds) in place of H0, the scan value, the prefix and E (6, 2
+# adds): 19 and 14.
+# kernel -> (all instructions a cell, those only the integer pipe takes)
+MIN_INSTR_PER_CELL = {"sw_banded": (21, 16), "sw_banded16": (10.5, 8),
+                      "sw_banded_packed": (21, 16), "sw_batch": (19, 14)}
 # the probe's chain step as ptxas emits it: LOP3 and VIADDMNMX
 PROBE_INSTR_PER_STEP = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
@@ -117,10 +131,30 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 # integer add, compare/min/max and bitwise ops: the throughput table of
 # the CUDA C++ Programming Guide ("Arithmetic Instructions").
 INT32_OPS_PER_CLOCK_PER_SM = 64
+# Instructions of any kind an SM issues a clock: its 4 schedulers issue
+# one warp instruction (32 threads) each.  Integer work can fill them:
+# 32-bit multiply-add (IMAD, which also adds and moves) has a pipe of its
+# own with 64 results a clock and SM in the same table.
+SCHED_SLOTS_PER_CLOCK_PER_SM = 128
 K_CHECK = 256              # rounds of the probe's check against its plain
 PROBE_SAMPLE = 4           # full-K elements checked against the plain
 # the integer SASS opcodes of the probe's chain steps
 INT_OPCODES = ("LOP3", "IADD3", "VIADD", "IMNMX", "VIMNMX", "VIADDMNMX")
+# the never-launched one-operation kernels of csrc/alu_probe.cu
+S16X2_FORMS = ("base", "vcmpges2", "vcmpgts2", "vadd2", "vsub2", "vmaxs2",
+               "vibmax_s16x2", "viaddmax_s16x2", "vimax3_s16x2", "sign_mask")
+# The inner loop of each SW kernel at the thread form the recorded chained
+# call (100 bp reads, corridors of 50) takes, and the cells one pass of the
+# loop covers per thread: (library, mangled-name part, cells).
+CELL_LOOPS = {
+    "sw_batch 8x13": ("sw_batch", "sw_batch_kernelILi13ELi8EE", 13),
+    "sw_batch 32x4": ("sw_batch", "sw_batch_kernelILi4ELi32EE", 4),
+    "sw_banded16 8x8": ("sw_banded16", "sw_banded16_kernelILi4ELi8ELi1EE", 8),
+    "sw_banded16 32x2": ("sw_banded16", "sw_banded16_kernelILi1ELi32ELi1EE",
+                         2),
+    "sw_banded 8x8": ("sw_banded", "rowsweep_kernelILi8ELi8ELi1EE", 8),
+    "sw_banded 32x2": ("sw_banded", "rowsweep_kernelILi2ELi32ELi1EE", 2),
+}
 
 
 def log(msg: str) -> None:
@@ -210,38 +244,166 @@ def int32_instr_per_s(device) -> float:
     return sms * max_sm_clock_mhz() * 1e6 * INT32_OPS_PER_CLOCK_PER_SM
 
 
-def bound_ms(instructions: float, n_bytes: float, instr_per_s: float):
-    """The least time the card could take: the larger of the integer
-    instructions over its int32 instruction rate and the bytes (each input
-    read once, each output written once) over its memory rate.  Returns
-    (ms, "operations" or "bytes")."""
-    t_ops = instructions / instr_per_s * 1e3
+def bound_ms(instructions: float, int_pipe_instructions: float,
+             n_bytes: float, int32_per_s: float):
+    """The least time the card could take, at its peak rates: the largest
+    of all the instructions over its issue slots, those that only the
+    integer pipe takes over its int32 rate ``int32_per_s``
+    (``int32_instr_per_s``), and the bytes (each input read once, each
+    output written once) over its memory rate.  Returns (ms, "operations"
+    or "bytes")."""
+    slots_per_s = (int32_per_s * SCHED_SLOTS_PER_CLOCK_PER_SM
+                   / INT32_OPS_PER_CLOCK_PER_SM)
+    t_ops = max(instructions / slots_per_s,
+                int_pipe_instructions / int32_per_s) * 1e3
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
+
+
+def _sass_functions(so_path) -> dict:
+    """``cuobjdump -sass`` of a library: mangled function name -> its
+    instructions in order, as (address, opcode, the branch target or
+    None)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    r = subprocess.run([cuobjdump, "-sass", str(so_path)],
+                       capture_output=True, text=True, check=True,
+                       timeout=300)
+    out, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = []
+            continue
+        m = re.search(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)"
+            r"(.*)", line)
+        if m and fn:
+            target = None
+            if m.group(2) == "BRA":
+                t = re.search(r"0x([0-9a-f]+)", m.group(3))
+                target = int(t.group(1), 16) if t else None
+            out[fn].append((int(m.group(1), 16), m.group(2), target))
+    return out
+
+
+def _one_function(kernel: str, function: str) -> list:
+    found = [v for k, v in _sass_functions(_build._so_path(kernel)).items()
+             if function in k]
+    if not found or not found[0]:
+        raise RuntimeError(f"no SASS for {function} in {kernel}")
+    return found[0]
 
 
 def sass_opcodes(kernel: str, function: str) -> dict:
     """Opcode counts of the function of ``kernel``'s library whose mangled
     name contains ``function``, from ``cuobjdump -sass``: what the
     compiler emitted for it."""
-    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    r = subprocess.run([cuobjdump, "-sass", str(_build._so_path(kernel))],
-                       capture_output=True, text=True, check=True,
-                       timeout=300)
-    counts, fn = collections.Counter(), None
-    for line in r.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            continue
-        m = re.search(
-            r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if m and fn and function in fn:
-            counts[m.group(1)] += 1
-    if not counts:
-        raise RuntimeError(f"no SASS for {function} in {kernel}")
+    counts = collections.Counter(op for _, op, _ in
+                                 _one_function(kernel, function))
     return dict(counts.most_common())
+
+
+def sass_loop(kernel: str, function: str) -> dict:
+    """The main loop of a function, read from its SASS: the widest span
+    closed by a backward branch (the row or step loop; every loop inside
+    it is unrolled).  Returns the function's instruction count, the
+    loop's (NOPs left out) and the loop's opcode counts; ``loop`` is None
+    where no backward branch was found."""
+    return _loop_of(_one_function(kernel, function))
+
+
+def _loop_of(ins: list) -> dict:
+    spans = [(addr - target, target, addr) for addr, op, target in ins
+             if op == "BRA" and target is not None and target <= addr]
+    res = {"total": sum(op != "NOP" for _, op, _ in ins), "loop": None,
+           "loop_opcodes": {}}
+    # a span that holds the function's exit or a store is not the loop
+    addr_of = {op: [a for a, o, _ in ins if o == op] for op in ("EXIT",
+                                                                 "STG")}
+    spans = [sp for sp in spans
+             if not any(sp[1] <= a <= sp[2] for v in addr_of.values()
+                        for a in v)]
+    if spans:
+        _, lo, hi = max(spans)
+        body = collections.Counter(op for addr, op, _ in ins
+                                   if lo <= addr <= hi and op != "NOP")
+        res["loop"] = sum(body.values())
+        res["loop_opcodes"] = dict(body.most_common())
+    return res
+
+
+def sass_loops_in(so_path, stem: str) -> dict:
+    """``sass_loop`` of every function of the library at ``so_path`` whose
+    mangled name contains ``stem``, keyed by its template arguments (the
+    ``I...E`` part of the name): for a library built from another
+    checkout's source (tools/ab_smoke.py --sass)."""
+    out = {}
+    for fn, ins in _sass_functions(so_path).items():
+        if stem in fn and ins:
+            m = re.search(re.escape(stem) + r"I(\w+?)E+v", fn)
+            out[m.group(1) if m else fn] = _loop_of(ins)
+    return out
+
+
+def cell_loops() -> dict:
+    """The SASS instructions a cell of each SW kernel's inner loop at the
+    thread forms of the recorded chained call (CELL_LOOPS): the loop's
+    static instruction count over the cells one pass covers per thread,
+    and the IMADs among them, beside the hand count MIN_INSTR_PER_CELL.  Static: a branch not taken
+    (a tail row, a lane guard) counts as if it were."""
+    out = {}
+    for label, (kernel, function, cells) in CELL_LOOPS.items():
+        loop = sass_loop(kernel, function)
+        per_cell = None if loop["loop"] is None else loop["loop"] / cells
+        # IMAD (multiply-add, adds and moves) issues beside the integer pipe
+        imad = sum(v for k, v in loop["loop_opcodes"].items()
+                   if k.startswith("IMAD")) / cells
+        out[label] = dict(loop, cells_per_pass=cells,
+                          sass_instr_per_cell=per_cell,
+                          sass_imad_per_cell=imad,
+                          hand_count=MIN_INSTR_PER_CELL[kernel])
+        log(f"sass [{label}]: {loop['loop']} instructions in the loop of "
+            f"{loop['total']} / {cells} cells = {per_cell} a cell, {imad} "
+            f"of them IMAD (hand count, all and integer pipe only: "
+            f"{MIN_INSTR_PER_CELL[kernel]}); loop opcodes "
+            f"{loop['loop_opcodes']}")
+    return out
+
+
+def s16x2_forms() -> dict:
+    """What each s16x2 operation of sw_banded16.cu compiles to: the opcode
+    counts of its one-operation kernel and its instructions beyond the
+    `base` kernel's (which holds one LOP3 for its xor)."""
+    base = sass_opcodes("alu_probe", "s16x2_form_base")
+    n_base = sum(v for k, v in base.items() if k != "NOP")
+    out = {}
+    for form in S16X2_FORMS:
+        ops = sass_opcodes("alu_probe", f"s16x2_form_{form}")
+        n = sum(v for k, v in ops.items() if k != "NOP")
+        extra = {k: v - base.get(k, 0) for k, v in ops.items()
+                 if k != "NOP" and v != base.get(k, 0)}
+        out[form] = {"instructions": n - n_base + 1, "beyond_base": extra}
+        log(f"s16x2 form {form}: {n - n_base + 1} instructions; opcodes "
+            f"beyond base {extra}")
+    return out
+
+
+def s16x2_instr_per_s(device, K: int = 2048) -> tuple:
+    """The card's measured rate of the probe's s16x2 chain step (a LOP3
+    and a packed add-max, as ptxas emits them): (instructions/s, SASS
+    integer instructions a step, ms of the timed run)."""
+    n = probe.card_elements(device)
+    x = torch.arange(n, dtype=torch.int32, device=device)
+    U = probe.UNROLL_TPU
+    _, ms = _timed(lambda: probe.alu_probe(x, K, U, "s16x2"), device, 3)
+    ops_sass = sass_opcodes("alu_probe", f"alu_probe_kernelILi{U}ELi2EE")
+    per_step = sum(v for k, v in ops_sass.items()
+                   if k in INT_OPCODES or k.startswith("VI")) / (
+        U * probe.CHAINS)
+    steps = probe.probe_ops(n, K, U) // 3
+    return steps * per_step / (ms * 1e-3), per_step, ms
 
 
 def step_probe(device) -> dict:
@@ -257,18 +419,25 @@ def step_probe(device) -> dict:
                             device, 1)
     res = {"probe_elements": n, "probe_unroll": U, "probe_k_check": K_CHECK,
            "probe_k": probe.K_TPU, "alu_probe_plain_ms": plain_ms}
+    want16, plain16_ms = _timed(
+        lambda: probe.alu_probe_s16x2_ref(x, K_CHECK, U), device, 1)
+    res["s16x2_probe_plain_ms"] = plain16_ms
     for form in probe.FORMS:
         got, ms = _timed(lambda: probe.alu_probe(x, K_CHECK, U, form),
                          device, ITERS)
-        err = int((got.long() - want.long()).abs().max())
+        ref = want16 if form == "s16x2" else want
+        err = int((got.long() - ref.long()).abs().max())
         if err:
             raise RuntimeError(f"vpu-probe: the {form} form differs from "
-                               f"alu_probe_ref at K={K_CHECK} (max abs "
-                               f"err {err})")
+                               f"its plain version at K={K_CHECK} (max "
+                               f"abs err {err})")
         res[f"{form}_k_check_ms"] = ms
         res[f"{form}_max_abs_err"] = err
     sample = torch.linspace(0, n - 1, PROBE_SAMPLE).long()
-    want_full = probe.alu_probe_ref(x[sample].cpu(), probe.K_TPU, U)
+    want_full = {
+        form: (probe.alu_probe_s16x2_ref if form == "s16x2"
+               else probe.alu_probe_ref)(x[sample].cpu(), probe.K_TPU, U)
+        for form in probe.FORMS}
     ops = probe.probe_ops(n, probe.K_TPU, U)
     outs = {}
     for form in probe.FORMS:
@@ -280,9 +449,10 @@ def step_probe(device) -> dict:
             out = probe.alu_probe(x, probe.K_TPU, U, form)
             t1.record()
             torch.cuda.synchronize(device)
-            if not torch.equal(out[sample].cpu(), want_full):
+            if not torch.equal(out[sample].cpu(), want_full[form]):
                 raise RuntimeError(f"vpu-probe: the {form} form differs "
-                                   f"from alu_probe_ref at K={probe.K_TPU}")
+                                   f"from its plain version at "
+                                   f"K={probe.K_TPU}")
             if r:
                 best = min(best, t0.elapsed_time(t1))
         outs[form] = out
@@ -303,8 +473,10 @@ def step_probe(device) -> dict:
     # instructions per counted chain step (3 ops), and the instruction rate
     for form in probe.FORMS:
         ops_sass = sass_opcodes(
-            "alu_probe", f"alu_probe_kernelILi{U}ELb{int(form == 'dpx')}E")
-        per_step = sum(ops_sass.get(o, 0) for o in INT_OPCODES) / (
+            "alu_probe",
+            f"alu_probe_kernelILi{U}ELi{probe.FORMS.index(form)}EE")
+        per_step = sum(v for k, v in ops_sass.items()
+                       if k in INT_OPCODES or k.startswith("VI")) / (
             U * probe.CHAINS)
         res[f"{form}_sass"] = ops_sass
         res[f"{form}_sass_int_instr_per_step"] = per_step
@@ -312,6 +484,13 @@ def step_probe(device) -> dict:
             res[f"{form}_int32_tops"] * per_step / 3)
     res["sw_banded_sass_w128"] = sass_opcodes(
         "sw_banded", "rowsweep_kernelILi4ELi32ELi1E")
+    res["s16x2_forms"] = s16x2_forms()
+    res["cell_loops"] = cell_loops()
+    log(f"vpu-probe s16x2: {res['s16x2_ms']} ms, "
+        f"{res['s16x2_sass_int_instr_per_step']} SASS integer instructions "
+        f"a step, {res['s16x2_int32_instr_tera_per_s']} T packed "
+        f"instructions/s (two int16 lanes each) against the int32 form's "
+        f"{res['alu_int32_instr_tera_per_s']}")
     log(f"vpu-probe: {n} elements, K={probe.K_TPU} x {U}: alu "
         f"{res['alu_ms']} ms = {res['alu_int32_tops']} Tops/s, dpx "
         f"{res['dpx_ms']} ms = {res['dpx_int32_tops']} Tops/s (3 ops a "

@@ -517,6 +517,121 @@ def test_smem_kmer_table_refuses_k_below_1(k, small_contigs):
                                        idx.primary, idx.fm_n, k=3))
 
 
+def test_smem_kmer_table_wider_than_the_seed_falls_back(small_contigs):
+    """A k-mer table with k = 4 and ``min_seed_len = 3`` cannot serve
+    round 3 (its k exceeds the shortest seed): the port's native copy
+    falls back to the run with no table, plane for plane (the fallback
+    that tests/test_smem.py:193-199 runs and never asserts)."""
+    rng = np.random.default_rng(31)
+    idx = port_index(build_index(small_contigs))
+    text = np.concatenate(list(small_contigs.values()))
+    text = np.where(text > 3, 0, text).astype(np.uint8)
+    n, L = 48, 60
+    codes = np.empty((n, L), np.uint8)
+    for r in range(n):
+        p0 = int(rng.integers(0, len(text) - L))
+        codes[r] = text[p0:p0 + L]
+        codes[r, rng.integers(0, L, 2)] = rng.integers(0, 4, 2)
+        if r % 5 == 0:
+            codes[r, int(rng.integers(0, L))] = 4          # an N
+    lens = np.full(n, L, np.int32)
+
+    def run(tab, min_seed_len):
+        return port_native.smem_seed_batch(
+            idx.occ_blocks, idx.counts, idx.primary, idx.fm_n, codes, lens,
+            min_seed_len=min_seed_len, split_len=28, split_width=10,
+            max_mem_intv=20, max_seeds=64, n_threads=1, kmer_tab=tab)
+
+    tab = port_native.smem_kmer_table(idx.occ_blocks, idx.counts,
+                                      idx.primary, idx.fm_n, k=4)
+    for min_seed_len in (3, 19):          # refused, then used
+        base, got = run(None, min_seed_len), run(tab, min_seed_len)
+        assert int(base[4].sum()) > 0
+        for a, b in zip(base, got):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_replay_writer_equals_jax(tmp_path):
+    """The port's ReplayWriter and the JAX package's, fed the same
+    (batch, candidates) of the golden world by one Aligner, write the same
+    bytes."""
+    import torch
+    from ema_tpu.utils.replay import ReplayWriter as JaxWriter
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.index import build_index as port_build_index
+    from ema_tpu_torch.utils.replay import ReplayWriter
+
+    contigs, _, pairs = golden_world()
+    idx = port_build_index(contigs)
+    writers = {
+        name: cls(str(tmp_path / f"{name}.replay"), idx.names,
+                  list(idx.lengths))
+        for name, cls in (("jax", JaxWriter), ("port", ReplayWriter))}
+    al = Aligner(idx, port_config.RunConfig(batch_size=512, seed=7),
+                 device=torch.device("cpu"))
+
+    def sink(batch, cands):
+        for w in writers.values():
+            w.add(batch, cands)
+    al.replay_sink = sink
+    al.align_batch_to_sam(ReadBatch.from_pairs(*pairs))
+    for w in writers.values():
+        w.close()
+    port = (tmp_path / "port.replay").read_bytes()
+    assert port == (tmp_path / "jax.replay").read_bytes()
+    assert port.count(b"\nE ") > 100
+
+
+def _broken_sams(sam: str) -> dict:
+    """The golden SAM and the breakages of tests/test_samcheck.py (a CIGAR
+    that no longer consumes SEQ, a POS past the contig), a mate
+    cross-reference cut and a TLEN sign flipped."""
+    lines = sam.splitlines(keepends=True)
+    at = next(i for i, ln in enumerate(lines) if not ln.startswith("@"))
+
+    def with_field(k, value):
+        f = lines[at].split("\t")
+        f[k] = value(f[k]) if callable(value) else value
+        return lines[:at] + ["\t".join(f)] + lines[at + 1:]
+
+    return {"golden": lines, "cigar": with_field(5, "1M"),
+            "pos": with_field(3, "99999999"),
+            "pnext": with_field(7, lambda v: str(int(v) + 3)),
+            "tlen": with_field(8, lambda v: str(-int(v) or 5)),
+            "flag": with_field(1, lambda v: str(int(v) ^ 0x10))}
+
+
+@pytest.mark.parametrize("case", ["golden", "cigar", "pos", "pnext", "tlen",
+                                  "flag"])
+def test_check_sam_equals_jax(case, two_sams):
+    """The port's check_sam reports what the JAX package's reports: no
+    violation on the golden SAM, the same ones on each broken copy."""
+    from ema_tpu.utils.samcheck import check_sam as jax_check
+    from ema_tpu_torch.utils.samcheck import check_sam
+
+    with open(two_sams[0]) as f:
+        lines = _broken_sams(f.read())[case]
+    got = check_sam(lines)
+    assert got == jax_check(lines)
+    assert (got == []) == (case == "golden"), got[:5]
+    if case == "cigar":
+        assert any("CIGAR consumes" in e for e in got)
+    if case == "pos":
+        assert any("outside" in e or "past" in e for e in got)
+
+
+def test_read_fai_equals_jax(tmp_path):
+    from ema_tpu.io import read_fai as jax_read_fai
+    from ema_tpu_torch.io import read_fai
+
+    fai = tmp_path / "ref.fa.fai"
+    fai.write_text("chr1\t1000\t6\t60\t61\n\nchr2 extra\t50\t9\t60\t61\n"
+                   "  \nscaffold_3\t7\t1\t7\t8\n")
+    assert read_fai(str(fai)) == jax_read_fai(str(fai)) == [
+        "chr1", "chr2", "scaffold_3"]
+
+
 def test_two_native_libraries_share_nothing():
     """Both packages' libraries are loaded in this process: two files,
     and the port's lives under build/, named by a hash, not beside its

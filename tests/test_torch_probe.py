@@ -83,10 +83,57 @@ def test_probe_ref_equals_pallas_and_numpy(K, unroll, shape):
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     # the wrapper runs the plain version on a CPU tensor, in either form
-    for form in probe.FORMS:
+    for form in ("alu", "dpx"):
         np.testing.assert_array_equal(
             probe.alu_probe(torch.from_numpy(x), K, unroll, form).numpy(),
             want)
+
+
+def _numpy_probe_s16x2(x, K, unroll):
+    """The s16x2 form as a loop over the int16 halves of every element:
+    python ints wrapped to 16 bits after every add."""
+    def wrap(v):
+        return (v + 0x8000) % 0x10000 - 0x8000
+
+    halves = x.reshape(-1).view(np.int16)
+    out = np.empty_like(halves)
+    for e, h in enumerate(halves.tolist()):
+        acc = [wrap(h + j) for j in range(probe.CHAINS)]
+        for i in range(1, K + 1):
+            for u in range(unroll):
+                c = wrap(i + u)
+                acc = [max(a ^ c, wrap(a + j)) for j, a in enumerate(acc)]
+        tot = 0
+        for a in acc:
+            tot ^= a
+        out[e] = tot
+    return out.view(np.int32).reshape(x.shape)
+
+
+@pytest.mark.parametrize("K,unroll,shape", [(64, 4, (4, 16)), (16, 32, (32,)),
+                                            (9, 2, (3, 5)), (0, 1, (8,))])
+def test_probe_s16x2_ref_equals_numpy(K, unroll, shape):
+    """The plain version of the probe's s16x2 form against a numpy loop,
+    on halves near both ends of int16 (so that adds wrap) and small ones;
+    the wrapper runs it on a CPU tensor."""
+    rng = np.random.default_rng(K + unroll)
+    n = int(np.prod(shape))
+    halves = rng.integers(-40, 40, 2 * n).astype(np.int16)
+    edge = rng.random(2 * n) < 0.3
+    halves[edge] = rng.choice([32767, 32760, -32768, -32761, 16384],
+                              int(edge.sum())).astype(np.int16)
+    x = halves.view(np.int32).reshape(shape)
+    want = _numpy_probe_s16x2(x, K, unroll)
+    got = probe.alu_probe_s16x2_ref(torch.from_numpy(x), K, unroll)
+    assert got.dtype == torch.int32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        probe.alu_probe(torch.from_numpy(x), K, unroll, "s16x2").numpy(),
+        want)
+    if K:
+        assert not np.array_equal(
+            want, probe.alu_probe_ref(torch.from_numpy(x), K,
+                                      unroll).numpy())
 
 
 def test_probe_ops_and_refusals():

@@ -19,9 +19,10 @@ import torch
 from ema_tpu import config
 from ema_tpu.core import pipeline as jax_pipeline
 from ema_tpu.index import build_index, build_index_sharded
-from ema_tpu.utils.replay import ReplayWriter
+from ema_tpu.utils.replay import ReplayWriter as JaxReplayWriter
 from ema_tpu_torch.core.batch import ReadBatch
 from ema_tpu_torch.index.device import to_device_state
+from ema_tpu_torch.utils.replay import ReplayWriter
 from simulate import revcomp_str, rand_genome, simulate_pairs, to_str
 from torch_handover import Aligner, ShardedAligner, port_index
 
@@ -163,11 +164,12 @@ def test_replay_sink_equals_jax(world, tmp_path):
     reference oracle reads is the JAX Aligner's, byte for byte."""
     _, pairs, single, _ = world
     files = {}
-    for name, al, rb in (
+    for name, al, rb, writer in (
             ("jax", jax_pipeline.Aligner(single, CFG),
-             jax_pipeline.ReadBatch),
-            ("port", Aligner(single, CFG, device="cpu"), ReadBatch)):
-        w = ReplayWriter(str(tmp_path / f"{name}.replay"), single.names,
+             jax_pipeline.ReadBatch, JaxReplayWriter),
+            ("port", Aligner(single, CFG, device="cpu"), ReadBatch,
+             ReplayWriter)):
+        w = writer(str(tmp_path / f"{name}.replay"), single.names,
                          list(single.lengths))
         al.replay_sink = w.add
         al.align_batch_to_sam(rb.from_pairs(*pairs))

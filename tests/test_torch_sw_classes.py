@@ -2,7 +2,7 @@
 
 The CUDA kernel cannot run here, so two things are held instead:
 
-* the host side of ``ops/sw._launch_kernel``: ``plan_class_launches``
+* the host side of ``ops/sw._plan_kernel``: ``plan_class_launches``
   (one span and no sort when the call's corridors fall in one class, or
   when a sort would save too few lane slots to pay; else
   ``class_counts``, ``class_spans`` and the device sort
