@@ -25,8 +25,10 @@ failure raises and the run exits non-zero:
      sides of its threshold), with kernel and plain times and each
      kernel's bound (the least time the card could take for the same
      cells at its peak issue and int32 rates; the s16x2 rate that the
-     probe measures is logged beside them), and sw_batch at 8 and 32
-     threads a candidate;
+     probe measures is logged beside them), sw_batch at 8 and 32 threads
+     a candidate and sw_banded_packed at 8 x 8 and 16 x 4 lanes, each
+     form held to the launch's own choice (packed also on reads to 1023
+     bp whose start rows lie past 256);
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -52,7 +54,8 @@ failure raises and the run exits non-zero:
      with its plain version on the card; every SW kernel timed on the
      default run's recorded chained and rescue calls (cells, ms, Gcell/s,
      share of the bound; sw_banded's and sw_banded16's launch rules and
-     sw_batch's thread forms on that chained call); then device EM on and
+     the thread forms of sw_banded16, sw_banded_packed and sw_batch on that
+     chained call); then device EM on and
      off in turns (on, off, off, on) with pairs/s, the whole stage table
      and 0 differing records, one torch.profiler pass (device idle share,
      the EM's launches per emit batch and per pass, and whether the EM
@@ -425,6 +428,13 @@ def sw_cases(dev, seed=7):
                                              lens_s)
         cases[f"scan_rl{top}_n{Ne}"] = edge_set(oriented_s, lens_s, pos_s,
                                                 48, Ne)
+    # the packed tier's corridors on reads of 300..1023 bases whose first
+    # 280 bases do not align, so that start rows lie past 256; an odd N
+    R4, L4 = 64, 1023
+    lens4 = rng.integers(300, L4 + 1, R4).astype(np.int32)
+    oriented4, pos4 = _reads_from_text(rng, text, R4, L4, lens4)
+    oriented4[:, :280] = rng.integers(0, 4, (R4, 280))
+    cases["long_w64"] = edge_set(oriented4, lens4, pos4, 64, 1023)
     return cases
 
 
@@ -447,8 +457,12 @@ SCAN_FORM_CASES = (
 KERNEL_CASES = {
     "sw_banded": None, "sw_banded16": None, "sw_batch": "all",
     "sw_banded_packed": ("chained_w64", "odd_w64", "mixed_w64", "edge_w32",
-                         "edge_w64", f"edge_w56_n{LARGE_CLASS}"),
+                         "edge_w64", f"edge_w56_n{LARGE_CLASS}",
+                         "long_w64"),
 }
+# scorer -> the sets on which its kernel's thread forms (ops/sw.FORM_GROUPS)
+# are held to the launch's own choice and timed against each other
+FORM_CASES = {"scan": ("chained", "rescue"), "packed": ("chained_w64",)}
 # the pipeline shape each kernel is timed at, then the extra shapes
 TIMED = {"sw_banded": ("chained", "rescue", "mixed"),
          "sw_banded16": ("chained", "rescue"),
@@ -477,8 +491,9 @@ def _time_ms(fn, reps: int) -> float:
 
 def _planned(c, scorer, group=0):
     """(out, launch) of the wrapper's plan for the scorer's kernel on
-    ``c``; ``group`` asks sw_batch or sw_banded16 for one thread form (8 or
-    32 threads) in place of the launch's own choice."""
+    ``c``; ``group`` asks sw_batch, sw_banded16 or sw_banded_packed for one
+    thread form (``ops/sw.FORM_GROUPS``) in place of the launch's own
+    choice."""
     from ema_tpu_torch.ops.sw import _plan_kernel
 
     return _plan_kernel(c["text"], c["oriented"], c["olens"], c["owners"],
@@ -614,33 +629,38 @@ def phase_kernel(dev, card: str) -> dict:
                 f"{bound / ms} of the call's, library call: none, "
                 f"card: {card}")
         stats[name] = st
-    _phase_scan_forms(cases, card)
+    _phase_forms(cases, card)
     # the packed tier's shape through the one-warp banded kernel
     c = cases["chained_w64"]
     ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
-    log(f"sw_banded [chained_w64] N={c['owners'].shape[0]}: kernel {ms} ms "
-        f"({_cells(c, 'banded') / ms / 1e6} Gcell/s), card: {card}")
+    launch_ms = _kernel_ms(c, "banded", 20)
+    log(f"sw_banded [chained_w64] N={c['owners'].shape[0]}: wrapper call "
+        f"{ms} ms, the launches alone {launch_ms} ms "
+        f"({_cells(c, 'banded') / launch_ms / 1e6} Gcell/s), card: {card}")
     return stats
 
 
-def _phase_scan_forms(cases, card: str) -> None:
-    """sw_batch's two group widths against each other on the chained and
-    the rescue set (the launch's own choice is timed by the caller): 8 and
-    32 threads a candidate, each held to the default form's output."""
-    from ema_tpu_torch.ops.sw import gather_score
+def _phase_forms(cases, card: str) -> None:
+    """The thread forms of sw_batch (8 and 32 threads a candidate) and
+    sw_banded_packed (8 x 8 and 16 x 4 lanes) against each other on the
+    sets of FORM_CASES (the launch's own choice is timed by the caller),
+    each held to the default form's output."""
+    from ema_tpu_torch.ops.sw import FORM_GROUPS, KERNEL_OF, gather_score
 
-    for cname in ("chained", "rescue"):
-        c = cases[cname]
-        want = _call(gather_score, c, "scan")
-        row = []
-        for group in (8, 32):
-            check(torch.equal(_form_out(c, "scan", group), want),
-                  f"sw_batch at {group} threads a candidate differs on "
-                  f"{cname}")
-            row.append(f"{group} threads "
-                       f"{_kernel_ms(c, 'scan', 10, group)} ms")
-        log(f"sw_batch thread forms [{cname}] N={c['owners'].shape[0]}, "
-            f"the launch alone: " + ", ".join(row) + f"; card: {card}")
+    for scorer, cnames in FORM_CASES.items():
+        name = KERNEL_OF[scorer]
+        for cname in cnames:
+            c = cases[cname]
+            want = _call(gather_score, c, scorer)
+            row = []
+            for group in FORM_GROUPS[scorer]:
+                check(torch.equal(_form_out(c, scorer, group), want),
+                      f"{name} at {group} threads a candidate differs on "
+                      f"{cname}")
+                row.append(f"{group} threads "
+                           f"{_kernel_ms(c, scorer, 10, group)} ms")
+            log(f"{name} thread forms [{cname}] N={c['owners'].shape[0]}, "
+                f"the launch alone: " + ", ".join(row) + f"; card: {card}")
 
 
 # ----------------------------------------------------------------------
@@ -890,7 +910,8 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
     50..60 (one class, never sorted), in 50..70 (two classes; the default
     plan against a forced sort and a forced single launch) and with a 6%
     tail to 250 (the same three).  Then a wl = 50 call on both sides of
-    the size from which a narrow class takes part-warp segments.  Every
+    the size from which a narrow class takes part-warp segments (and
+    sw_banded16's and sw_banded_packed's thread forms on it).  Every
     variant is held bit-exact against the plain version."""
     from ema_tpu_torch.ops import sw
     from ema_tpu_torch.ops.sw import gather_score, gather_score_ref
@@ -936,7 +957,8 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
     finally:
         sw.SORT_PAYS_SLOTS = default
     for name, scorer in (("sw_banded", "banded"),
-                         ("sw_banded16", "banded16")):
+                         ("sw_banded16", "banded16"),
+                         ("sw_banded_packed", "packed")):
         for n in (512, 1024, WARP_CALL_132, WARP_CALL_132 + 1, 1536, 2048,
                   4096, LARGE_CLASS - 1, LARGE_CLASS, 8192):
             keep = np.arange(min(n, N))
@@ -948,10 +970,9 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
             ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
             row = [f"wrapper call {ms} ms",
                    f"the launch alone {_kernel_ms(c, scorer, 20)} ms"]
-            if scorer == "banded16":
-                row += [f"on {group} threads "
-                        f"{_kernel_ms(c, scorer, 20, group)} ms"
-                        for group in (8, 32)]
+            row += [f"on {group} threads "
+                    f"{_kernel_ms(c, scorer, 20, group)} ms"
+                    for group in sw.FORM_GROUPS.get(scorer, ())]
             log(f"{name} [wl = 50] N={keep.shape[0]}: " + ", ".join(row)
                 + f"; cells={cells}, bound {bound} ms by {by}, card: {card}")
     # sw_batch's two group widths on the recorded call, on both sides of

@@ -17,8 +17,8 @@ struct Scoring {
 };
 
 // SMs of the current device (132 where the query fails), read once: the
-// launches of sw_batch.cu and sw_banded16.cu pick a thread form by the
-// candidates a call holds for each SM
+// launches of sw_batch.cu, sw_banded16.cu and sw_banded_packed.cu pick a
+// thread form by the candidates a call holds for each SM
 inline int64_t sm_count() {
     static const int n = [] {
         int dev = 0, sms = 0;

@@ -1,7 +1,13 @@
-// The int32 banded row sweep shared by sw_banded.cu (a part of a warp, a
-// whole warp or several warps per candidate, by corridor-width class) and
-// sw_banded_packed.cu (a 16-thread half warp per candidate, two candidates
-// per warp).
+// The int32 banded row sweep of sw_banded.cu (a part of a warp, a whole
+// warp or several warps per candidate, by corridor-width class), its only
+// user: sw_banded_packed.cu, which instantiated it at 16 threads x 4 lanes
+// until it got a one-pass body of its own, keeps its recurrences and tie
+// rules.  This body pays per cell for a bounds-checked byte load of the
+// window base, the substitution score and the diagonal twice (a second
+// pass recomputes the first), a branch on k < wl and on validity, and a
+// five-field best-cell offer: 101.9 SASS instructions a cell at 8 threads
+// x 8 lanes against a hand count of 21 (tools/bench_sw.py), the costs that
+// sw_banded16.cu and sw_banded_packed.cu no longer pay.
 //
 // Recurrences, outputs and tie rules are those of ema_tpu/ops/sw.py:
 // sw_score_banded (its plain PyTorch twin is ema_tpu_torch/ops/sw.py:

@@ -16,8 +16,13 @@ ema_tpu/core/pipeline.py:_gather_score fused in:
 On CUDA tensors the scorer's kernel launches (``banded`` and ``banded16``
 once per corridor-width class of the call, see ``plan_class_launches``;
 ``scan`` with the threads a candidate that the call's longest read and
-its size call for); on CPU tensors its plain version runs.  A CUDA tensor never runs the plain
-version, and a failed build or launch raises.
+its size call for; ``packed`` once, 16 threads x 4 lanes or, for a call
+of more than 8 candidates an SM, 8 x 8); on CPU tensors its plain
+version runs.  A CUDA tensor never runs the plain version, and a failed
+build or launch raises.  ``sw_banded`` runs the shared row sweep of
+csrc/sw_rowsweep.cuh; ``sw_banded16``, ``sw_banded_packed`` and
+``sw_batch`` are one-pass kernels of their own that look the
+substitution score up as a signed byte.
 
 The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
 is ema_tpu/ops/sw.py:sw_score_banded, ``sw_score_banded16_ref`` the same
@@ -74,6 +79,11 @@ LAUNCHES = {k: LaunchCounter() for k in KERNEL_OF.values()}
 CALLS = {s: LaunchCounter() for s in KERNEL_OF}
 
 
+# the thread forms (threads a candidate) that ``_plan_kernel``'s ``group``
+# may ask of a scorer's kernel; 0 leaves the choice to the launch
+FORM_GROUPS = {"scan": (8, 32), "banded16": (8, 32), "packed": (8, 16)}
+
+
 def reset_counts() -> None:
     for c in (*LAUNCHES.values(), *CALLS.values()):
         c.reset()
@@ -98,8 +108,9 @@ def _check_int16_range(m, w_band, match, mismatch, gap_open, gap_extend,
 
 
 def _check_byte_scores(name, match, mismatch) -> None:
-    """sw_batch and sw_banded16 look the substitution score up as a
-    signed byte; gather_score holds the CPU to the same limit."""
+    """sw_batch, sw_banded16 and sw_banded_packed look the substitution
+    score up as a signed byte; gather_score holds the CPU to the same
+    limit."""
     if not (-127 <= match <= 127 and -127 <= mismatch <= 127):
         raise ValueError(f"{name}: match and mismatch must fit a signed "
                          f"byte (got {match}, {mismatch})")
@@ -525,9 +536,10 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     (int32 [N, 4]) on the current stream, adds them to ``LAUNCHES`` and may
     be called again.  ``gather_score`` is ``_plan_kernel`` then
     ``launch()``.  chip_smoke.py times ``launch`` alone, without the plan's
-    readback, and passes ``group`` (8 or 32 threads; scan and banded16
-    only) to time one thread form against the other; 0 leaves the choice
-    to the launch, and nothing else passes another value."""
+    readback, and passes ``group`` (one of ``FORM_GROUPS[scorer]``: 8 or
+    32 threads a candidate for scan and banded16, 8 or 16 for packed) to
+    time one thread form against the other; 0 leaves the choice to the
+    launch, and nothing else passes another value."""
     from ema_tpu_torch.ops import _build
 
     name = KERNEL_OF[scorer]
@@ -568,8 +580,9 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
         if scorer == "banded16":
             _check_int16_range(L, w_hi, match, mismatch, gap_open,
                                gap_extend, clip)
-    if group and scorer not in ("scan", "banded16"):
-        raise ValueError(f"gather_score: {name} has one thread form a call")
+    if group and group not in FORM_GROUPS.get(scorer, ()):
+        raise ValueError(f"gather_score: {name} takes no thread form of "
+                         f"{group} threads")
     perm = None
     if scorer in ("banded", "banded16"):
         # one launch per non-empty width class, each on its span of the
@@ -582,7 +595,7 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     elif scorer == "scan":
         launches = [(N, max_rl, group)]
     else:
-        launches = [(N, w_hi)]
+        launches = [(N, w_hi, group)]
     # the tensors whose pointers the launches carry stay alive with it
     held = (text, oriented, olens, owners, win_lo, win_len, wl, perm, out)
     head = (text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
@@ -612,9 +625,9 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
     owners int32 [N], win_lo int64 [N], win_len int32 [N], wl int32 [N],
     all on one device.  ``scorer`` is one of banded, banded16, packed
     (wl <= 64) or scan (wl ignored).  CUDA: the scorer's kernel; CPU: its
-    plain version.  Under scan and banded16 ``match`` and ``mismatch`` must
-    lie within +-127 on either device: their kernels look the substitution
-    score up as a signed byte.
+    plain version.  Under scan, banded16 and packed ``match`` and
+    ``mismatch`` must lie within +-127 on either device: their kernels look
+    the substitution score up as a signed byte.
     """
     if scorer not in KERNEL_OF:
         raise ValueError(f"gather_score: unknown scorer {scorer!r} (one of "
@@ -631,7 +644,7 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
               gap_open=gap_open, gap_extend=gap_extend, clip=clip)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"gather_score: unsupported device {dev}")
-    if scorer in ("scan", "banded16"):
+    if scorer in ("scan", "banded16", "packed"):
         _check_byte_scores(KERNEL_OF[scorer], match, mismatch)
     CALLS[scorer].add()
     if dev.type == "cuda":

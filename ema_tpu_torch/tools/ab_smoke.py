@@ -1,10 +1,13 @@
 """Two checkouts of this repository in turns on one card: the SW kernels'
 times on the synthetic chained and rescue sets (chip_smoke.sw_cases), the
 bench world's pairs/s under the default scorer (chip_smoke._main_run) and
-the times of sw_banded, sw_banded16 and sw_batch on the chained call that
-run recorded, A, B, B, A.  Every kernel time is given twice: the wrapper's
-call (CUDA events around gather_score, which also pays its checks and the
-readback of the bounds) and the SW kernels alone (torch.profiler).
+the times of sw_banded, sw_banded16, sw_banded_packed (on the corridors of
+at most 64 lanes) and sw_batch on the chained call that run recorded, A, B,
+B, A; where a checkout's sw_banded_packed takes a thread form
+(ops/sw.FORM_GROUPS), each form is timed too.  Every kernel time is given
+twice: the wrapper's call (CUDA events around gather_score, which also pays
+its checks and the readback of the bounds) and the SW kernels alone
+(torch.profiler).
 
     python -m ema_tpu_torch.tools.ab_smoke DIR_A DIR_B [--skip-kernel]
         [--skip-main] [--rounds=N] [--sass]
@@ -17,10 +20,11 @@ checkout is any directory with a ``chip_smoke.py`` and its
 DIR``); ``--rounds=N`` repeats the four turns N times.  Prints each
 turn's numbers, then both sides' kernel times and pass rates side by side
 with the card's name and power limit.  Fails if a turn fails.  ``--sass``
-first builds sw_batch.cu and sw_banded16.cu of both checkouts and prints,
-for every instantiation, the SASS instructions of its main loop over the
-cells one pass covers per thread (its first template argument: rows a
-thread for sw_batch, registers of two lanes for sw_banded16).
+first builds sw_batch.cu, sw_banded16.cu, sw_banded_packed.cu and
+sw_banded.cu of both checkouts and prints, for every instantiation, the
+SASS instructions of its main loop over the cells one pass covers per
+thread (its first template argument: rows a thread for sw_batch, registers
+of two lanes for sw_banded16, lanes a thread for the row sweeps).
 """
 
 from __future__ import annotations
@@ -43,10 +47,14 @@ dev = resolve_device("cuda")
 card = gpu_info()
 _build.load_all()
 res = {"card": card}
+from ema_tpu_torch.ops import sw
 from ema_tpu_torch.ops.sw import gather_score
 from torch.profiler import ProfilerActivity, profile
-SCORERS = ("banded", "banded16", "scan")
-SW_KERNELS = ("rowsweep_kernel", "sw_banded16_kernel", "sw_batch_kernel")
+SCORERS = ("banded", "banded16", "packed", "scan")
+SW_KERNELS = ("rowsweep_kernel", "sw_banded16_kernel",
+              "sw_banded_packed_kernel", "sw_batch_kernel")
+# the packed kernel's thread forms, where this checkout's launch takes one
+PACKED_FORMS = getattr(sw, "FORM_GROUPS", {}).get("packed", ())
 
 
 def timed(fn, reps):
@@ -80,6 +88,10 @@ if "kernel" in want:
             reps = 20 if cname.startswith("chained") else 10
             res["kernel"][f"{scorer} {cname}"] = timed(
                 lambda: cs._call(gather_score, c, scorer), reps)
+    c = cases["chained_w64"]
+    for group in PACKED_FORMS:
+        res["kernel"][f"packed chained_w64 {group} threads"] = timed(
+            cs._planned(c, "packed", group)[1], 20)
     del cases
 if "main" in want:
     genome, pairs, truth, _ = cs.bench_world()
@@ -92,15 +104,29 @@ if "main" in want:
     import numpy as np
     c = rec.get("chained", rec)
     put = lambda a, t: torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
-    args = (torch.from_numpy(idx.text).to(dev), c["oriented_dev"],
-            c["olens_dev"], put(c["owners"], np.int32),
-            put(c["win_lo"], np.int64), put(c["win_len"], np.int32),
-            put(np.maximum(c["wl"], 1), np.int32))
-    ms = {s: timed(lambda: gather_score(*args, scorer=s, **cs.SW_KW), 20)
+    wl = np.maximum(c["wl"], 1)
+
+    def call_args(keep):
+        return (torch.from_numpy(idx.text).to(dev), c["oriented_dev"],
+                c["olens_dev"], put(c["owners"][keep], np.int32),
+                put(c["win_lo"][keep], np.int64),
+                put(c["win_len"][keep], np.int32), put(wl[keep], np.int32))
+
+    args = call_args(np.arange(len(wl)))
+    # the packed tier takes the corridors of at most 64 lanes
+    small = call_args(np.nonzero(wl <= sw.PACKED_MAX_WL)[0])
+    ms = {s: timed(lambda: gather_score(*(small if s == "packed" else args),
+                                        scorer=s, **cs.SW_KW), 20)
           for s in SCORERS}
+    pc = dict(zip(("text", "oriented", "olens", "owners", "win_lo",
+                   "win_len", "wl"), small))
+    for group in PACKED_FORMS:
+        ms[f"packed {group} threads"] = timed(
+            cs._planned(pc, "packed", group)[1], 20)
     rl = c["olens_dev"].cpu().numpy()[c["owners"]].astype(np.int64)
     res["recorded"] = {"ms": ms, "N": int(len(c["owners"])),
-                       "cells": int((rl * np.maximum(c["wl"], 1)).sum()),
+                       "N_packed": int((wl <= sw.PACKED_MAX_WL).sum()),
+                       "cells": int((rl * wl).sum()),
                        "max_wl": int(c["wl"].max())}
 print("AB_RESULT " + json.dumps(res), flush=True)
 """
@@ -118,8 +144,10 @@ def run_turn(path: str, want: str) -> dict:
 
 
 def print_sass(sides: dict) -> None:
-    """The main-loop SASS instruction counts of both checkouts' sw_batch
-    and sw_banded16, built here with this checkout's flags."""
+    """The main-loop SASS instruction counts of both checkouts' sw_batch,
+    sw_banded16, sw_banded_packed (a row sweep of its own, or an
+    instantiation of the shared one) and sw_banded, built here with this
+    checkout's flags."""
     import os
     import tempfile
 
@@ -128,19 +156,26 @@ def print_sass(sides: dict) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         for side, path in sides.items():
-            for kernel, lanes in (("sw_batch", 1), ("sw_banded16", 2)):
+            for kernel, lanes, stem in (
+                    ("sw_batch", 1, "sw_batch_kernel"),
+                    ("sw_banded16", 2, "sw_banded16_kernel"),
+                    ("sw_banded_packed", 1, "sw_banded_packed_kernel"),
+                    ("sw_banded_packed", 1, "rowsweep_kernel"),
+                    ("sw_banded", 1, "rowsweep_kernel")):
                 so = os.path.join(tmp, f"{side}_{kernel}.so")
                 src = os.path.join(path, "ema_tpu_torch", "ops", "csrc",
                                    f"{kernel}.cu")
-                subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                                src], check=True, capture_output=True)
-                loops = bench_sw.sass_loops_in(so, f"{kernel}_kernel")
+                if not os.path.exists(so):
+                    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                                    so, src], check=True,
+                                   capture_output=True)
+                loops = bench_sw.sass_loops_in(so, stem)
                 for args, loop in sorted(loops.items()):
                     first = int(args.split("E")[0].lstrip("Li"))
                     cells = first * lanes
                     per = (None if loop["loop"] is None
                            else loop["loop"] / cells)
-                    print(f"{side} {path} sass {kernel}<{args}>: "
+                    print(f"{side} {path} sass {kernel} {stem}<{args}>: "
                           f"{loop['loop']} instructions in the loop of "
                           f"{loop['total']} / {cells} cells = {per} a cell; "
                           f"{loop['loop_opcodes']}", flush=True)

@@ -154,6 +154,10 @@ CELL_LOOPS = {
                          2),
     "sw_banded 8x8": ("sw_banded", "rowsweep_kernelILi8ELi8ELi1EE", 8),
     "sw_banded 32x2": ("sw_banded", "rowsweep_kernelILi2ELi32ELi1EE", 2),
+    "sw_banded_packed 8x8": ("sw_banded_packed",
+                             "sw_banded_packed_kernelILi8ELi8EE", 8),
+    "sw_banded_packed 16x4": ("sw_banded_packed",
+                              "sw_banded_packed_kernelILi4ELi16EE", 4),
 }
 
 

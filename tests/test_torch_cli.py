@@ -24,6 +24,7 @@ from ema_tpu.parallel import distrib as jax_distrib
 from ema_tpu_torch import cli
 from ema_tpu_torch.parallel import distrib
 from simulate import rand_genome, simulate_pairs, to_str
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 
 def body(path):

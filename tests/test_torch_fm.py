@@ -11,6 +11,7 @@ from ema_tpu import native
 from ema_tpu.index import fmindex
 from ema_tpu.index.build import build_index
 from ema_tpu_torch.index import fm
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 from torch_handover import port_index
 
 

@@ -36,6 +36,7 @@ from ema_tpu_torch import native as port_native
 from simulate import rand_genome
 from test_split import _bad_cloud_group
 from torch_handover import fields_of, port_index
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-12

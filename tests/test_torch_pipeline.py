@@ -29,6 +29,7 @@ from ema_tpu_torch.core.pipeline import (orient_device, resolve_device_em,
 from ema_tpu_torch.index.device import to_device_state
 from simulate import rand_genome, simulate_pairs, to_str
 from torch_handover import Aligner, port_index
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ from ema_tpu_torch.index.device import to_device_state
 from ema_tpu_torch.utils.replay import ReplayWriter
 from simulate import revcomp_str, rand_genome, simulate_pairs, to_str
 from torch_handover import Aligner, ShardedAligner, port_index
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ from ema_tpu_torch.ops.sw import (LAUNCHES, LaunchCounter, gather_score,
                                   gather_score_ref, reset_counts,
                                   sw_score_banded_ref)
 from ema_tpu_torch.utils.backend import resolve_device
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 KEYS = ("score", "qb", "qe", "ref_end")
 

@@ -401,8 +401,8 @@ def _warp_candidates(rng, n_cands, lanes, m_max=36):
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_part_warp_row_sweep_emulation(LPT, SEGW, seed):
     """The kernel body at 8, 16 and 32 threads a candidate (every form
-    the classes of at most 128 lanes take, an odd 8 x 7 besides, and the
-    packed tier's 16 x 4),
+    the classes of at most 128 lanes take, an odd 8 x 7 and a 16 x 4
+    besides),
     a full warp and one with a missing last candidate, against the plain
     row sweep."""
     rng = np.random.default_rng(100 * SEGW + seed)

@@ -1,4 +1,5 @@
-"""The thread forms of sw_batch and sw_banded16, on the CPU.
+"""The thread forms of sw_batch, sw_banded16 and sw_banded_packed, on the
+CPU.
 
 The CUDA kernels cannot run here, so each form is held as a numpy
 emulation of the kernel body, thread by thread and shuffle by shuffle
@@ -15,10 +16,17 @@ version and, on a subset, against the Pallas kernels in interpret mode:
   one pass, with the static lane mask, the tail-row mask, base selectors
   that slide with a byte permute and every s16x2 operation wrapping at
   16 bits and every select mask taken from the sign of the wrapped
-  difference.
+  difference;
+* ``emulate_packed(LPT, SEGW)``: csrc/sw_banded_packed.cu's one-pass int32
+  row sweep at 16 x 4 and 8 x 8 lanes (two and four candidates a warp),
+  with selector nibbles that slide by a funnel shift, four scores a prmt,
+  one sign-spreading prmt a lane, the static and tail-row lane masks and
+  per-lane bests, over a text that windows run off at either end.
 
 ``banded16`` through ``plan_class_launches`` equals the one-call result and
-the JAX package's gather and Pallas int16 kernel.  All comparisons are exact (integers).
+the JAX package's gather and Pallas int16 kernel; ``packed``'s emulation
+equals the JAX package's pair-packed Pallas kernel.  All comparisons are
+exact (integers).
 """
 
 import jax.numpy as jnp
@@ -27,6 +35,7 @@ import pytest
 import torch
 
 from ema_tpu.ops.sw_pallas import (sw_score_banded_pallas16,
+                                   sw_score_banded_pallas_packed,
                                    sw_score_batch_pallas)
 from ema_tpu_torch.ops.sw import (NEG, NEG16, gather_score,
                                   gather_score_by_class_ref,
@@ -607,15 +616,15 @@ def test_sign_mask_needs_the_range_check():
     assert (_hi16(_max_ge(a, b)[1]) == _hi16(_ge_mask(a, b))).all()
 
 
-@pytest.mark.parametrize("scorer", ["scan", "banded16"])
+@pytest.mark.parametrize("scorer", ["scan", "banded16", "packed"])
 @pytest.mark.parametrize("scores", [dict(match=128), dict(mismatch=128),
                                     dict(match=-128)],
                          ids=["match128", "mismatch128", "match-128"])
 def test_byte_scores_are_checked_on_either_device(scorer, scores):
-    """sw_batch and sw_banded16 look the substitution score up as a signed
-    byte, so gather_score refuses a match or mismatch beyond +-127 under
-    their scorers wherever the tensors lie; +-127 itself and the int32
-    scorers pass."""
+    """sw_batch, sw_banded16 and sw_banded_packed look the substitution
+    score up as a signed byte, so gather_score refuses a match or mismatch
+    beyond +-127 under their scorers wherever the tensors lie; +-127
+    itself and the banded scorer pass."""
     rng = np.random.default_rng(5)
     c = _t(_inputs(rng, np.full(6, 8, np.int32)))
     kw = dict(SW, **scores)
@@ -674,3 +683,341 @@ def test_banded16_class_launches_equal_the_jax_gather():
         interpret=True, **SW)
     for col, k in enumerate(KEYS):
         np.testing.assert_array_equal(got[:, col], np.asarray(want[k]), k)
+
+
+# ----------------------------------------------------------------------
+# sw_banded_packed_kernel<LPT, SEGW>
+# ----------------------------------------------------------------------
+
+def _funnel_r(lo, hi, s):
+    """__funnelshift_r(lo, hi, s): the low word of (hi:lo) >> s."""
+    v = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(
+        lo, np.uint64)
+    return ((v >> np.uint64(s)) & np.uint64(0xffffffff)).astype(U32)
+
+
+def _sext_byte(b):
+    """The prmt selector that sign-spreads byte b over 32 bits."""
+    return b | ((8 | b) * 0x1110)
+
+
+def emulate_packed(LPT, SEGW, text, cands, match, mismatch, gap_open,
+                   gap_extend, clip):
+    """``cands``: up to 32 / SEGW tuples (read codes, win_lo, win_len, wl)
+    over ``text`` (columns outside it read 5); returns their (score, qb,
+    qe, ref_end) rows as csrc/sw_banded_packed.cu writes them: selector
+    nibbles that slide by a funnel shift, four scores a prmt and one
+    sign-spreading prmt a lane, shuffles at the segment's width, the
+    static and tail-row lane masks and per-lane bests."""
+    nseg = T // SEGW
+    assert LPT * SEGW == 64 and len(cands) <= nseg
+    t = np.arange(T)
+    sl, seg = t % SEGW, t // SEGW
+    live = seg < len(cands)
+
+    def per(i, fill=0):
+        return np.array([(len(cands[s][0]) if i < 0 else cands[s][i])
+                         if live[th] else fill for th, s in enumerate(seg)],
+                        np.int64)
+
+    rl, lo, nl, wl = per(-1), per(1), per(2), per(3)
+    ge, goe = gap_extend, gap_open + gap_extend
+    lanes = sl[:, None] * LPT + np.arange(LPT)[None, :]       # k, [T, LPT]
+    nib0 = 8 - LPT
+
+    def text_at(col):
+        ok = (col >= 0) & (col < len(text))
+        return np.where(ok, text[np.clip(col, 0, len(text) - 1)], 5)
+
+    def nibble(c):
+        return np.minimum(c, 4).astype(U32)
+
+    def read_at(i):
+        return np.array([cands[s][0][i - 1] if live[th] and i <= rl[th]
+                         else 4 for th, s in enumerate(seg)])
+
+    last_row = np.minimum(rl, nl)
+    rows = last_row.copy()
+    off = SEGW
+    while off < 32:
+        rows = np.maximum(rows, _shfl_xor(rows, off))
+        off <<= 1
+    full_rows = np.minimum(nl - wl + 1, last_row)
+
+    Hp, Fp = np.full((T, LPT), NEG, np.int64), np.full((T, LPT), NEG, np.int64)
+    SHp, SFp = np.zeros((T, LPT), np.int64), np.zeros((T, LPT), np.int64)
+    BV = np.full((T, LPT), NEG, np.int64)
+    BI, BS = np.zeros((T, LPT), np.int64), np.zeros((T, LPT), np.int64)
+    KE, NKEG = lanes * ge, -lanes * ge - gap_open
+    VK = lanes < wl[:, None]
+    VM = VK.copy()
+    sel = np.zeros(T, U32)
+    for j in range(LPT):
+        sel |= nibble(text_at(lo + lanes[:, j])) << U32(4 * (nib0 + j))
+    nbuf = np.full(T, 4, U32)
+
+    for i in range(1, int(rows[0]) + 1):
+        if (i - 1) % SEGW == 0:
+            nbuf = nibble(text_at(lo + i + sl + 63))
+        s_in = _shfl_idx(nbuf, (i - 1) % SEGW, SEGW)
+        sel_lo = sel >> U32(16) if LPT == 4 else sel
+        nH, nF = _shfl_down(Hp[:, 0], 1, SEGW), _shfl_down(Fp[:, 0], 1, SEGW)
+        nSH = _shfl_down(SHp[:, 0], 1, SEGW)
+        nSF = _shfl_down(SFp[:, 0], 1, SEGW)
+        nsel = _shfl_down(sel_lo, 1, SEGW)
+        edge = sl == SEGW - 1
+        nH, nF = np.where(edge, NEG, nH), np.where(edge, NEG, nF)
+        nSH, nSF = np.where(edge, 0, nSH), np.where(edge, 0, nSF)
+        nsel = np.where(edge, s_in, nsel).astype(U32)
+        row_ok = i <= last_row
+        lut = score_word(np.where(row_ok, read_at(i), 4), match, mismatch)
+        sub4 = [prmt(lut, 0xffffffff, sel_lo)]
+        if LPT == 8:
+            sub4.append(prmt(lut, 0xffffffff, sel >> U32(16)))
+        sel = _funnel_r(sel, nsel, 4)
+        fresh = 0 if i == 1 else -clip
+        endp = np.where(i == rl, 0, -clip)
+        lim = np.where(row_ok, nl - i + 1, 0)
+        VM = np.where((i > full_rows)[:, None], VK & (lanes < lim[:, None]),
+                      VM)
+
+        HD, SD, H0, S0, A = (np.zeros((T, LPT), np.int64) for _ in range(5))
+        aggP, aggS = np.full(T, NEG, np.int64), np.zeros(T, np.int64)
+        for j in range(LPT):                     # part 1
+            sub = _i32(prmt(sub4[j >> 2], 0, _sext_byte(j & 3)))
+            last = j + 1 == LPT
+            hn = nH if last else Hp[:, j + 1]
+            fn = nF if last else Fp[:, j + 1]
+            shn = nSH if last else SHp[:, j + 1]
+            sfn = nSF if last else SFp[:, j + 1]
+            fo, fe = hn - goe, fn - ge
+            f = np.where(fo >= fe, fo, fe)
+            sf = np.where(fo >= fe, shn, sfn)
+            Fp[:, j], SFp[:, j] = f, sf
+            ph = Hp[:, j]
+            hd = np.where(ph >= fresh, ph, fresh) + sub
+            sd = np.where(ph >= fresh, SHp[:, j], i - 1)
+            h0, s0 = np.where(hd >= f, hd, f), np.where(hd >= f, sd, sf)
+            a = h0 + KE[:, j]
+            HD[:, j], SD[:, j], H0[:, j], S0[:, j], A[:, j] = hd, sd, h0, s0, a
+            take = a >= aggP
+            aggP, aggS = np.where(take, a, aggP), np.where(take, s0, aggS)
+
+        off = 1                                  # scan_carries<SEGW>
+        while off < SEGW:
+            oP, oS = _shfl_up(aggP, off, SEGW), _shfl_up(aggS, off, SEGW)
+            take = (sl >= off) & (oP > aggP)
+            aggP, aggS = np.where(take, oP, aggP), np.where(take, oS, aggS)
+            off <<= 1
+        P = np.where(sl == 0, NEG, _shfl_up(aggP, 1, SEGW))
+        PS = np.where(sl == 0, 0, _shfl_up(aggS, 1, SEGW))
+
+        for j in range(LPT):                     # part 2
+            f, sf = Fp[:, j].copy(), SFp[:, j]
+            e = P + NKEG[:, j]
+            ef = np.where(e >= f, e, f)
+            h = np.where(H0[:, j] >= e, H0[:, j], e)
+            sh = np.where(HD[:, j] >= ef, SD[:, j], np.where(e >= f, PS, sf))
+            take = A[:, j] >= P
+            P, PS = np.where(take, A[:, j], P), np.where(take, S0[:, j], PS)
+            Hp[:, j] = np.where(VM[:, j], h, NEG)
+            Fp[:, j] = np.where(VM[:, j], f, NEG)
+            SHp[:, j] = sh
+            cand = Hp[:, j] + endp
+            up = cand > BV[:, j]
+            BV[:, j] = np.where(up, cand, BV[:, j])
+            BI[:, j] = np.where(up, i, BI[:, j])
+            BS[:, j] = np.where(up, sh, BS[:, j])
+
+    best = [np.full(T, NEG, np.int64)] + [np.zeros(T, np.int64)
+                                          for _ in range(4)]  # v d i x s
+    for j in range(LPT):
+        k = lanes[:, j]
+        offer = [BV[:, j], 2 * BI[:, j] + k, BI[:, j], k, BS[:, j]]
+        take = _better(offer[0], offer[1], offer[2], *best[:3])
+        best = [np.where(take, o, b) for o, b in zip(offer, best)]
+    off = SEGW // 2
+    while off > 0:
+        other = [_shfl_xor(b, off) for b in best]
+        take = _better(other[0], other[1], other[2], *best[:3])
+        best = [np.where(take, o, b) for o, b in zip(other, best)]
+        off >>= 1
+    v, _, bi, bx, bs = best
+    return np.array([[v[s * SEGW], bs[s * SEGW], bi[s * SEGW],
+                      bi[s * SEGW] + bx[s * SEGW]]
+                     for s in range(len(cands))], np.int64)
+
+
+def _packed_text(rng, n=1500):
+    text = rng.integers(0, 4, n).astype(np.uint8)
+    text[n // 2:n // 2 + 12] = 4                        # a run of N bases
+    return text
+
+
+def _packed_candidates(rng, text, n_cands, m_max, m_min=None):
+    """Candidates for one warp over ``text``: reads of mixed lengths (one
+    of length 0) planted with a substitution, a deletion and an N, corridors
+    of 64 and 1 among them, windows short enough for tail rows
+    (win_len < rl + wl - 1) and windows that run off either end of the
+    text."""
+    n = len(text)
+    cands = []
+    for c in range(n_cands):
+        if m_min is None:
+            m_min = max(m_max // 3, 2)
+        m = 0 if c == 1 else int(rng.integers(m_min, m_max + 1))
+        wl = (64, 40, 1, int(rng.integers(1, 65)))[c % 4]
+        o = int(rng.integers(0, wl))
+        where = c % 3                      # 0 inside, 1 at the start, 2 end
+        if where == 1:
+            p = int(rng.integers(0, 6))
+            o = max(o, p + 1)              # the window starts before 0
+        elif where == 2:
+            p = n - m - int(rng.integers(0, 4))
+        else:
+            p = int(rng.integers(40, n - m - 80))
+        read = text[p:p + m].astype(np.int64).copy()
+        if m > 4:
+            read[int(rng.integers(0, m))] ^= 1
+        if m > 12 and c % 2:
+            cut = int(rng.integers(4, m - 4))
+            read = np.concatenate([read[:cut], read[cut + 1:], [2]])
+        if m > 6 and c % 5 == 0:
+            read[m // 2] = 4
+        nl = m + wl + int(rng.integers(-2, 30))
+        if c % 4 == 2 or c % 7 == 3:       # tail rows
+            nl = max(m + wl - 1 - int(rng.integers(1, 25)), 1)
+        cands.append((read, p - o, max(nl, 1), wl))
+    return cands
+
+
+def _packed_inputs(text, cands):
+    """gather_score's inputs for ``cands`` (candidate b owns read b)."""
+    L = max(max(len(c[0]) for c in cands), 1)
+    oriented = np.full((len(cands), L), 4, np.uint8)
+    for b, c in enumerate(cands):
+        oriented[b, :len(c[0])] = c[0]
+    col = [np.array([c[i] for c in cands]) for i in (1, 2, 3)]
+    return dict(text=text, oriented=oriented,
+                olens=np.array([len(c[0]) for c in cands], np.int32),
+                owners=np.arange(len(cands), dtype=np.int32),
+                win_lo=col[0].astype(np.int64),
+                win_len=col[1].astype(np.int32), wl=col[2].astype(np.int32))
+
+
+PACKED_FORMS = [(4, 16), (8, 8)]
+
+
+@pytest.mark.parametrize("LPT,SEGW", PACKED_FORMS,
+                         ids=[f"{s}x{lpt}" for lpt, s in PACKED_FORMS])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_row_sweep_emulation(LPT, SEGW, seed):
+    """Both thread forms of sw_banded_packed, a full warp and one with a
+    missing last candidate (an odd N: a half-filled last warp), against
+    the plain packed tier through the gather."""
+    rng = np.random.default_rng(300 + 10 * SEGW + seed)
+    text = _packed_text(rng)
+    nseg = T // SEGW
+    top = 0
+    for n_cands in (nseg, nseg - 1):
+        cands = _packed_candidates(rng, text, n_cands, 60)
+        got = emulate_packed(LPT, SEGW, text, cands, **SW)
+        want = gather_score_ref(*_t(_packed_inputs(text, cands)),
+                                scorer="packed", **SW).numpy()
+        np.testing.assert_array_equal(got, want)
+        top = max(top, int(want[:, 0].max()))
+    assert top >= 20                     # real alignments were scored
+
+
+@pytest.mark.parametrize("LPT,SEGW", PACKED_FORMS,
+                         ids=[f"{s}x{lpt}" for lpt, s in PACKED_FORMS])
+def test_packed_row_sweep_emulation_past_256(LPT, SEGW):
+    """Reads of up to 300 bases whose alignments start past row 256:
+    start rows are kept whole (the JAX kernel keeps them modulo 256), as
+    the plain packed tier keeps them."""
+    rng = np.random.default_rng(40 + SEGW)
+    text = _packed_text(rng, 2500)
+    cands = _packed_candidates(rng, text, T // SEGW, 300, m_min=280)
+    for read, *_ in cands:
+        read[:262] = rng.integers(0, 4, min(len(read), 262))  # tails align
+    got = emulate_packed(LPT, SEGW, text, cands, **SW)
+    want = gather_score_ref(*_t(_packed_inputs(text, cands)),
+                            scorer="packed", **SW).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[:, 1] > 256).any()       # a start row past 256 was kept
+
+
+def test_packed_row_sweep_emulation_equals_pallas_packed():
+    """Both forms on one set (reads under 256 bases) against the JAX
+    package's pair-packed Pallas kernel in interpret mode, fed by the
+    gather of ema_tpu/core/pipeline.py:_gather_score."""
+    rng = np.random.default_rng(9)
+    text = _packed_text(rng)
+    cands = _packed_candidates(rng, text, 4, 80)
+    c = _packed_inputs(text, cands)
+    w_max = int(c["win_len"].max())
+    cols = c["win_lo"][:, None] + np.arange(w_max)[None, :]
+    wins = np.where((cols < 0) | (cols >= len(text)), 5,
+                    text[np.clip(cols, 0, len(text) - 1)]).astype(np.int32)
+    want = sw_score_banded_pallas_packed(
+        jnp.asarray(c["oriented"].astype(np.int32)),
+        jnp.asarray(c["olens"]), jnp.asarray(wins),
+        jnp.asarray(c["win_len"]), jnp.asarray(c["wl"]), interpret=True,
+        **SW)
+    for LPT, SEGW in PACKED_FORMS:
+        got = np.concatenate([
+            emulate_packed(LPT, SEGW, text, cands[s:s + T // SEGW], **SW)
+            for s in range(0, len(cands), T // SEGW)])
+        for col, k in enumerate(KEYS):
+            np.testing.assert_array_equal(got[:, col], np.asarray(want[k]),
+                                          f"{SEGW}x{LPT} {k}")
+    assert int(np.asarray(want["score"]).max()) >= 20
+
+
+# Two-letter reads and windows under scorings with many equal paths, each
+# set drawn as ``_tie_batch`` draws it: in the picked candidates the output
+# is decided by one tie rule, so that reversing it in the plain sweep (or
+# in the emulation) changes their (score, qb, qe, ref_end).  Set 1 (open 0,
+# extend 1, 4,096 drawn): the scan's nearer-source rule (391 ... 2451),
+# the merge's diag >= horizontal (9, 15, 16) and horizontal >= vertical
+# (54, 167), the vertical gap's open >= extend (499, 3310) and the
+# diagonal's H >= fresh (18, 21).  Set 2 (open 1, extend 0, 1,024 drawn):
+# the nearer-source rule between the threads' carries (182, 424, 789, 888).
+TIE_SETS = (
+    (dict(match=1, mismatch=1, gap_open=0, gap_extend=1, clip=0), 4096,
+     (391, 584, 951, 1538, 1715, 2308, 2451, 9, 15, 16, 54, 167, 499, 3310,
+      18, 21)),
+    (dict(match=1, mismatch=1, gap_open=1, gap_extend=0, clip=0), 1024,
+     (182, 424, 789, 888)),
+)
+
+
+def _tie_batch(B, picks):
+    """A seeded batch of B candidates: reads of 4..24 bases and windows of
+    4..92 over {0, 1}, corridors 1..64, windows laid end to end as the
+    text; returns the text and the picked candidates."""
+    rng = np.random.default_rng(0)
+    m, n = 24, 92
+    reads = rng.integers(0, 2, (B, m))
+    rl = rng.integers(4, m + 1, B)
+    wl = rng.integers(1, 65, B)
+    refs = rng.integers(0, 2, (B, n))
+    nl = rng.integers(4, n + 1, B)
+    text = refs.reshape(-1).astype(np.uint8)
+    return text, [(reads[b, :rl[b]], b * n, int(nl[b]), int(wl[b]))
+                  for b in picks]
+
+
+@pytest.mark.parametrize("LPT,SEGW", PACKED_FORMS,
+                         ids=[f"{s}x{lpt}" for lpt, s in PACKED_FORMS])
+def test_packed_row_sweep_emulation_keeps_the_tie_rules(LPT, SEGW):
+    """Both forms on the candidates whose outputs the tie rules decide."""
+    for scoring, B, picks in TIE_SETS:
+        text, cands = _tie_batch(B, picks)
+        got = np.concatenate([
+            emulate_packed(LPT, SEGW, text, cands[s:s + T // SEGW],
+                           **scoring)
+            for s in range(0, len(cands), T // SEGW)])
+        want = gather_score_ref(*_t(_packed_inputs(text, cands)),
+                                scorer="packed", **scoring).numpy()
+        np.testing.assert_array_equal(got, want)

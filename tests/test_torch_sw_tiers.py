@@ -30,6 +30,7 @@ from ema_tpu_torch.ops.sw import (CALLS, LAUNCHES, gather_score,
                                   sw_score_batch_ref)
 from simulate import rand_genome, simulate_pairs, to_str
 from torch_handover import Aligner
+from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 KEYS = ("score", "qb", "qe", "ref_end")
 
