@@ -88,7 +88,22 @@ failure raises and the run exits non-zero:
      device and host EM, with pairs/s of both, and ``index --shard-bases``
      then ``align -s`` and ``align -x`` through the CLI give the library
      path's records;
- 12. checks: synchronise, and neither jax nor ema_tpu was imported.
+ 12. mesh: the sharded candidate step over ``["cuda:0"] * n`` at (data,
+     cand) = (2, 1), (1, 2) and (2, 2) on 81,408 oriented bench-world
+     reads, bit-exact against ``candidate_core`` on one device with
+     every slot of the split (and that core against its CPU plain path on
+     256 reads), its sums equal to the host's, with sw_banded's launches
+     and reads/s beside the one-device step; ``bench_scaling.
+     partition_check(2)``; the Aligner on ``["cuda:0"] * 2`` (default and
+     device locate, whose 4th pass must also give phase 6's records, and
+     greedy device seed+locate on 8,192 pairs) must give the one-device
+     records, in turns.  Both cells are one card: no scaling is measured;
+ 13. multihost: two halves of the bench world's FASTQ counted apart, two
+     ``preproc --coordinator`` processes of one gloo group on 127.0.0.1
+     must give a one-process preproc's buckets byte for byte, and two
+     ``align -x --coordinator`` processes sharing the card phase 10's
+     records (MI masked);
+ 14. checks: synchronise, and neither jax nor ema_tpu was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before it the per-kernel JSON record; the last line
@@ -1790,7 +1805,7 @@ def phase_x(dev, card: str, genome, pairs, truth, bc_strs) -> dict:
     log(f"-x pairs/s: coalesced {rates['coalesced']}, -j 1 {rates['-j 1']}, "
         f"-j 2 {rates['-j 2']}, library {rates['library']}; coalesced / "
         f"-j 1 = {rates['coalesced'] / rates['-j 1']}; card: {card}")
-    return rates
+    return rates, ref_body
 
 
 SHARD_BASES = 1_600_000     # two shards of the 4 x 750 kbp sharded world
@@ -1898,6 +1913,292 @@ def phase_sharded(dev, card: str) -> dict:
     return rates
 
 
+# ----------------------------------------------------------------------
+# phases 12-13: the mesh and two processes
+# ----------------------------------------------------------------------
+
+STEP_STATIC = dict(max_seeds=4, hits_per_seed=4, window_pad=12,
+                   min_seed_len=19)     # ema_tpu_torch.parallel.bench_scaling
+MESHES = ((2, 1), (1, 2), (2, 2))
+
+
+def _step_reads(pairs, dev, n_rows: int = 40_704):
+    """The first ``n_rows`` reads of the bench world's pairs, forward and
+    reverse-complemented: int32 [2 * n_rows, 100] oriented reads and
+    their lengths on ``dev``."""
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import orient_device
+
+    b = ReadBatch.from_pairs(*(col[:(n_rows + 1) // 2] for col in pairs))
+    codes = torch.from_numpy(b.codes[:n_rows]).to(dev)
+    lens = torch.from_numpy(b.lens[:n_rows].astype(np.int32)).to(dev)
+    reads, lens = orient_device(codes, lens)
+    return reads.to(torch.int32), lens
+
+
+def _timed(fn, dev, reps: int = 3) -> tuple:
+    """(the last result, the best of ``reps`` wall times in s, ``dev``
+    idle at the end of each)."""
+    best, out = float("inf"), None
+    for _ in range(reps):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        best = min(best, time.time() - t0)
+    return out, best
+
+
+def phase_mesh(dev, card: str, idx, pairs, default_lines) -> None:
+    """The sharded candidate step and the Aligner's data split over cells
+    that share the one card: bit-exact against one device, with
+    sw_banded's launches on each path.  No scaling is measured: every
+    cell is the same card."""
+    from ema_tpu_torch import config
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.index.fm import FMIndexArrays
+    from ema_tpu_torch.ops.sw import reset_counts
+    from ema_tpu_torch.parallel import (bench_scaling, candidate_core,
+                                        make_mesh,
+                                        make_sharded_candidate_step)
+
+    fm = FMIndexArrays.from_index(idx, dev)
+    text = torch.from_numpy(idx.text).to(dev)
+    reads, lens = _step_reads(pairs, dev)
+    B = reads.shape[0]
+    K = STEP_STATIC["hits_per_seed"]
+    kw = {k: v for k, v in STEP_STATIC.items() if k != "hits_per_seed"}
+    # the plain path: the step's core on the CPU, on the first 1,024 reads
+    n_cpu = 256
+    cpu_out = candidate_core(FMIndexArrays.from_index(idx, "cpu"),
+                             torch.from_numpy(idx.text), reads[:n_cpu].cpu(),
+                             lens[:n_cpu].cpu(), hits_per_seed=2 * K, **kw)
+    one = make_sharded_candidate_step(make_mesh(1, 1, [dev]), fm, text,
+                                      **STEP_STATIC)
+    _, t_one = _timed(lambda: one(reads, lens), dev)
+    log(f"mesh step: {B} oriented reads, one device {B / t_one} reads/s "
+        f"(best of 3), card: {card}")
+    for n_data, n_cand in MESHES:
+        # one device, every slot of the mesh's split
+        reset_counts()
+        want = candidate_core(fm, text, reads, lens, hits_per_seed=K * n_cand,
+                              **kw)
+        n_one = _launched()["sw_banded"]
+        step = make_sharded_candidate_step(
+            make_mesh(n_data, n_cand, [str(dev)] * (n_data * n_cand)), fm,
+            text, **STEP_STATIC)
+        reset_counts()
+        out = step(reads, lens)
+        torch.cuda.synchronize(dev)
+        n_mesh = _launched()["sw_banded"]
+        _, t = _timed(lambda: step(reads, lens), dev)
+        b = want[0].cpu().numpy()
+        same = (torch.equal(out.best_score, want[0])
+                and torch.equal(out.best_gpos, want[1]))
+        sums = (int(out.n_aligned) == int((b > 0).sum())
+                and int(out.sum_score) == int(b[b > 0].sum()))
+        log(f"mesh step {n_data}x{n_cand} over [{dev}] * "
+            f"{n_data * n_cand}: bit-exact against candidate_core with "
+            f"{K * n_cand} hits a seed on one device={same}, n_aligned "
+            f"{int(out.n_aligned)} and sum_score {int(out.sum_score)} equal "
+            f"to the host sums={sums}, sw_banded launches {n_mesh} (one "
+            f"device {n_one}), {B / t} reads/s (best of 3; one device "
+            f"{B / t_one}), collectives {step.collectives}, card: {card}")
+        check(same and sums, f"the {n_data}x{n_cand} step differs from one "
+                             "device")
+        check(n_mesh >= n_data * n_cand, f"the {n_data}x{n_cand} step "
+                                         "launched sw_banded "
+                                         f"{n_mesh} times")
+        if (n_data, n_cand) == (1, 2):
+            same_cpu = all(torch.equal(a[:n_cpu].cpu(), c)
+                           for a, c in zip(want, cpu_out))
+            log(f"mesh step: the card's candidate_core with {2 * K} hits a "
+                f"seed equals the CPU's plain path on {n_cpu} reads="
+                f"{same_cpu}")
+            check(same_cpu, "candidate_core on the card differs from the "
+                            "CPU")
+
+    part = bench_scaling.partition_check(2, devices=[str(dev)] * 2)
+    log(f"bench_scaling.partition_check(2) over [{dev}] * 2: "
+        f"{json.dumps(part)}, card: {card}")
+    check(part["ok"], "partition_check(2) failed")
+
+    batch = ReadBatch.from_pairs(*pairs)
+    greedy = config.RunConfig(aligner=config.AlignerParams(seeding="greedy"))
+    turns = (("one device", None), ("2 cells", [str(dev)] * 2),
+             ("2 cells again", [str(dev)] * 2), ("one device again", None))
+
+    def n_differ(a, b) -> int:
+        return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+    # the fused greedy seed+locate runs at about 3k pairs/s (a loop of
+    # small launches, PERF.md): its check takes the first 8,192 pairs
+    for label, cfg, seed_impl, b, runs in (
+            ("default", None, None, batch, turns),
+            ("device locate", None, "device", batch, turns),
+            ("greedy, device seed+locate, 8,192 pairs", greedy, "device",
+             ReadBatch.from_pairs(*(col[:8192] for col in pairs)),
+             turns[:2])):
+        rates, out, aligners = {}, {}, {}
+        for name, devices in runs:
+            aligner = Aligner(idx, cfg, device=dev, seed_impl=seed_impl,
+                              devices=devices)
+            check((aligner.mesh is None) == (devices is None),
+                  f"Aligner(devices={devices}) mesh {aligner.mesh}")
+            reset_counts()
+            t0 = time.time()
+            out[name] = aligner.align_batch_to_sam(b)
+            torch.cuda.synchronize(dev)
+            rates[name] = len(b.ids) / (time.time() - t0)
+            aligners[name] = aligner
+            n = _launched()["sw_banded"]
+            check(n > 0, f"Aligner [{label}, {name}] never launched "
+                         "sw_banded")
+        n_diff = n_differ(out["2 cells"], out["one device"])
+        same = all(o == out["one device"] for o in out.values())
+        log(f"mesh Aligner [{label}] on [{dev}] * 2: {len(out['2 cells'])} "
+            f"records, {n_diff} differ from the one-device run, all "
+            f"{len(runs)} runs identical={same}; pairs/s in turns {rates} (no "
+            f"scaling: one card), sw_banded launches {n} in the last run, "
+            f"card: {card}")
+        check(same and n_diff == 0, f"the 2-cell Aligner [{label}] differs")
+        if cfg is None:
+            # phase_main_path's lines are the 4th pass of one Aligner (the
+            # MI ids run on across passes): 3 more passes on 2 cells
+            for _ in range(3):
+                last = aligners["2 cells"].align_batch_to_sam(batch)
+            n_diff = n_differ(last, default_lines)
+            log(f"mesh Aligner [{label}] on [{dev}] * 2, 4th pass: "
+                f"{n_diff} of {len(default_lines)} records differ from "
+                f"phase_main_path's default lines")
+            check(n_diff == 0, f"the 2-cell Aligner [{label}] differs from "
+                               "the default lines")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _two_processes(args_of, stdin_of=lambda i: None) -> float:
+    """The port's CLI as processes 0 and 1 of one gloo group on this
+    host, behind the import finder; ``args_of(i)`` = (mode, *args).
+    Returns the wall time until both have exited."""
+    coord = f"127.0.0.1:{_free_port()}"
+    t0 = time.time()
+    procs = []
+    try:
+        for i in range(2):
+            mode, *args = args_of(i)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", GUARDED_CLI, mode, "--coordinator",
+                 coord, "--nprocs", "2", "--procid", str(i), *args],
+                cwd=ROOT, stdin=stdin_of(i), stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        errs = [p.communicate(timeout=600)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"process {i} of {' '.join(args_of(i)[:1])}"
+                                 f" --coordinator failed:\n{err[-4000:]}")
+    return time.time() - t0
+
+
+def _records(lines) -> dict:
+    """SAM records by (name, mate) without MI and tags (tests/
+    test_multihost.py:130-150)."""
+    out = {}
+    for ln in lines:
+        f = ln.rstrip("\n").split("\t")
+        out[(f[0], int(f[1]) & 0xC0)] = (f[1], f[2], f[3], f[4], f[5], f[9])
+    return out
+
+
+def phase_multihost(dev, card: str, idx, genome, pairs, bc_strs,
+                    x_body) -> None:
+    """Two processes of one gloo group sharing the card: ``preproc
+    --coordinator`` over the two halves of the bench world's FASTQ must
+    give a one-process preproc's buckets, and ``align -x --coordinator``
+    over those buckets phase_x's records."""
+    from ema_tpu_torch.cli import _index_path
+
+    ids, _, s1, q1, s2, q2 = pairs
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = os.path.join(tmp, "ref.fa")
+        _write_fasta(ref, {"chr1": genome})
+        idx.save(_index_path(ref))          # both processes load it
+        wl = os.path.join(tmp, "wl.txt")
+        with open(wl, "w") as f:
+            f.writelines(b + "\n" for b in sorted(set(bc_strs)))
+        recs = [f"@{ids[i]}\n{bc_strs[i]}ACGTACG{s1[i]}\n+\n{'I' * 23}"
+                f"{q1[i]}\n@{ids[i]}\n{s2[i]}\n+\n{q2[i]}\n"
+                for i in range(len(ids))]
+        fq = os.path.join(tmp, "inter.fq")
+        halves = [os.path.join(tmp, f"half{i}.fq") for i in range(2)]
+        for path, part in ((fq, recs), (halves[0], recs[:len(recs) // 2]),
+                           (halves[1], recs[len(recs) // 2:])):
+            with open(path, "w") as f:
+                f.writelines(part)
+        t0 = time.time()
+        for i in range(2):
+            with open(halves[i], "rb") as fh:
+                _cli("count", "-w", wl, "-o", os.path.join(tmp, f"cnt{i}"),
+                     stdin=fh)
+        cnts = [os.path.join(tmp, f"cnt{i}.ema-ncnt") for i in range(2)]
+        with open(fq, "rb") as fh:
+            _cli("preproc", "-w", wl, "-o", os.path.join(tmp, "one"), "-n",
+                 "500", "-t", "4", *cnts, stdin=fh)
+        t_one = time.time() - t0
+        fhs = [open(h, "rb") for h in halves]
+        try:
+            t_two = _two_processes(
+                lambda i: ("preproc", "-w", wl, "-o",
+                           os.path.join(tmp, "two"), "-n", "500", "-t", "4",
+                           cnts[i]), lambda i: fhs[i])
+        finally:
+            for fh in fhs:
+                fh.close()
+        names = sorted(n for n in os.listdir(os.path.join(tmp, "one"))
+                       if n.startswith("ema-"))
+        bad = [n for n in names if b"".join(
+            open(os.path.join(tmp, "two", f"host{i:02d}", n), "rb").read()
+            for i in range(2)) != open(os.path.join(tmp, "one", n),
+                                       "rb").read()]
+        log(f"multihost preproc: two processes (gloo, 127.0.0.1) in {t_two}"
+            f" s; count of both halves + one-process preproc in {t_one} s; "
+            f"{len(names)} bucket files, {len(bad)} differ from the "
+            f"one-process run, card: {card}")
+        check(len(names) == 501 and not bad,
+              f"the two-process buckets differ: {bad[:3]}")
+
+        buckets = sorted(os.path.join(tmp, "one", n) for n in names
+                         if n.startswith("ema-bin-"))
+        t_x = _two_processes(
+            lambda i: ("align", "-r", ref, "--device", str(dev), "-x", "-o",
+                       os.path.join(tmp, "x.sam"), *buckets))
+        got = {}
+        for i in range(2):
+            got.update(_records(_body(os.path.join(
+                tmp, f"x.shard{i:02d}of02.sam"))))
+    want = _records(x_body)
+    n_diff = sum(got.get(k) != v for k, v in want.items()) \
+        + len(set(got) - set(want))
+    log(f"multihost align -x: two processes on [{dev}] in {t_x} s "
+        f"(index load and kernel load included), {len(got)} records, "
+        f"{n_diff} differ from phase_x's one-process run (MI masked), "
+        f"card: {card}")
+    check(n_diff == 0 and len(got) == len(want),
+          "the two-process align -x records differ from phase_x's")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; "
@@ -1956,8 +2257,10 @@ def main() -> int:
     phase(phase_long_reads, dev)
     phase(phase_cli, dev)
     kstats["alu_probe"] = phase(phase_bench_sw, dev, card)
-    phase(phase_x, dev, card, genome, pairs, truth, bc_strs)
+    _, x_body = phase(phase_x, dev, card, genome, pairs, truth, bc_strs)
     phase(phase_sharded, dev, card)
+    phase(phase_mesh, dev, card, idx, pairs, default_lines)
+    phase(phase_multihost, dev, card, idx, genome, pairs, bc_strs, x_body)
 
     torch.cuda.synchronize()
     loaded = reference_modules_loaded()

@@ -3,7 +3,8 @@ on a torch device.
 
     python -m ema_tpu_torch.cli count   -w wl.txt -o prefix [-p] < inter.fq
     python -m ema_tpu_torch.cli preproc -w wl.txt -o outdir [-n N] [-h] [-b]
-        [-t T] [-p] prefix.ema-ncnt... < inter.fq
+        [-t T] [-p] [--coordinator H:P --nprocs N --procid I]
+        prefix.ema-ncnt... < inter.fq
     python -m ema_tpu_torch.cli index   -r ref.fa [-o OUT] [--shard-bases N]
         [-j N] [--from-bwa]
     python -m ema_tpu_torch.cli align   -r ref.fa [--device cuda|cpu]
@@ -11,6 +12,7 @@ on a torch device.
         [-R RG] [-p platform] [-d] [-i idx] [-t T] [-j N] [--no-coalesce]
         [--manifest run.jsonl] [--sort] [--shard S --nshards N] [--nobc]
         [--profile DIR] [--device-em] [--seeding greedy|smem]
+        [--coordinator H:P --nprocs N --procid I]
     python -m ema_tpu_torch.cli samdiff a.sam b.sam [--pos-tol N]
         [--fail-under PCT]
     python -m ema_tpu_torch.cli help
@@ -28,8 +30,17 @@ torch.profiler trace, EMA_TPU_STAGE_TIMERS=1 publishes the stage timers,
 and EMA_TPU_SEED_IMPL and EMA_TPU_SW_IMPL choose where greedy seeding and
 locate run and which SW kernel scores.  ``count``, ``preproc``,
 ``index`` and ``samdiff`` follow ema_tpu/cli.py:171-286 on the port's own
-host modules.  Multi-host runs (``--coordinator``, ``--nprocs``,
-``--procid``) are not ported yet and are refused.
+host modules.
+
+Multi-host runs (ema_tpu/cli.py:200-227, 314-321, 385-396): with
+``--coordinator host:port --nprocs N --procid I`` each process joins a
+``torch.distributed`` group over gloo (``parallel/distrib.
+init_distributed``).  ``preproc`` then sums the barcode priors and read
+totals across the processes and writes its buckets under
+``<out>/host<I>``; ``align -x`` takes ``--shard/--nshards`` from the
+topology and writes ``<out>.shard<I>of<N>``.  Without ``--coordinator``,
+``--nprocs`` and ``--procid`` are ignored, as in the JAX package.  The
+processes may share one card.
 """
 
 from __future__ import annotations
@@ -43,8 +54,6 @@ import time
 
 from ema_tpu_torch import config
 from ema_tpu_torch import __version__
-
-MULTI_HOST_FLAGS = ("--coordinator", "--nprocs", "--procid")
 
 
 def _index_path(ref: str) -> str:
@@ -121,14 +130,14 @@ def _mi_shift(n_inputs: int) -> int:
     return max(31 - max(n_inputs - 1, 1).bit_length(), 10)
 
 
-def _refuse_multi_host(rest) -> bool:
-    """Write the refusal and return True if a multi-host flag is given."""
-    given = [f for f in MULTI_HOST_FLAGS
-             if any(r == f or r.startswith(f + "=") for r in rest)]
-    if given:
-        sys.stderr.write(f"error: {', '.join(given)}: multi-host is not "
-                         "ported yet\n")
-    return bool(given)
+def _add_multi_host_args(ap, implies: str = "") -> None:
+    ap.add_argument("--coordinator", default=None,
+                    help="multi-host: address host:port of process 0, "
+                         "which the processes join over gloo" + implies)
+    ap.add_argument("--nprocs", type=int, default=None,
+                    help="multi-host: total number of processes")
+    ap.add_argument("--procid", type=int, default=None,
+                    help="multi-host: this process's id (0-based)")
 
 
 def _run_coalesced_buckets(aligner, inputs, ns_of, mi_shift, part_path,
@@ -234,6 +243,8 @@ def _align(rest) -> int:
     ap.add_argument("--no-coalesce", action="store_true",
                     help="-x: align each bucket file in its own batches "
                          "instead of coalescing small buckets")
+    _add_multi_host_args(ap, " (implies --shard/--nshards from the "
+                             "process topology)")
     ap.add_argument("--shard", type=int, default=None,
                     help="this host's shard id (0-based)")
     ap.add_argument("--nshards", type=int, default=None,
@@ -259,8 +270,6 @@ def _align(rest) -> int:
                          "exact SMEM enumeration with BWA re-seeding in "
                          "host C++ (smem, the default)")
     ap.add_argument("inputs", nargs="*")
-    if _refuse_multi_host(rest):
-        return 1
     a = ap.parse_args(rest)
 
     n_modes = int(a.multi) + int(a.fqx is not None) + \
@@ -288,6 +297,23 @@ def _align(rest) -> int:
     except (RuntimeError, ValueError) as e:
         sys.stderr.write(f"error: {e}\n")
         return 1
+
+    if a.coordinator is not None:
+        # multi-host -x: one process per host; bucket shards default to
+        # the process topology (buckets over hosts, batches over the
+        # host's devices)
+        from ema_tpu_torch.parallel.distrib import (init_distributed,
+                                                    shard_path)
+        try:
+            pid, pcount = init_distributed(a.coordinator, a.nprocs,
+                                           a.procid)
+        except ValueError as e:
+            sys.stderr.write(f"error: {e}\n")
+            return 1
+        if a.nshards is None:
+            a.shard, a.nshards = pid, pcount
+        if a.out and a.nshards > 1:
+            a.out = shard_path(a.out, a.shard or 0, a.nshards)
 
     from ema_tpu_torch.core.samout import write_sam_header
     from ema_tpu_torch.index import ShardedIndex
@@ -465,8 +491,6 @@ def _count(rest) -> int:
 
 
 def _preproc(rest) -> int:
-    if _refuse_multi_host(rest):
-        return 1
     ap = argparse.ArgumentParser(prog="ema_tpu_torch preproc",
                                  add_help=False)
     ap.add_argument("-w", dest="wl")
@@ -476,6 +500,7 @@ def _preproc(rest) -> int:
     ap.add_argument("-b", dest="bx", action="store_true")
     ap.add_argument("-t", dest="threads", type=int, default=1)
     ap.add_argument("-p", dest="haplotag", action="store_true")
+    _add_multi_host_args(ap)
     ap.add_argument("inputs", nargs="*")
     a = ap.parse_args(rest)
     if not a.wl and not a.haplotag:
@@ -485,11 +510,28 @@ def _preproc(rest) -> int:
         sys.stderr.write("warning: no input files specified; "
                          "nothing to do\n")
         return 0
+    distributed = a.coordinator is not None
+    out_dir = a.out
+    if distributed:
+        # one process per host; each host streams its own FASTQ chunk and
+        # local count outputs, sums the priors and totals across the
+        # processes so that bucket routing is globally consistent, and
+        # writes its bucket files under a per-host subdirectory
+        # (concatenating the host files of one bucket index yields the
+        # exact logical bucket of a single-process run)
+        from ema_tpu_torch.parallel.distrib import init_distributed
+        try:
+            pid, _ = init_distributed(a.coordinator, a.nprocs, a.procid)
+        except ValueError as e:
+            sys.stderr.write(f"error: {e}\n")
+            return 1
+        out_dir = os.path.join(a.out, f"host{pid:02d}")
     from ema_tpu_torch.preproc.correct import correct
-    stats = correct(a.wl, a.inputs, a.out, sys.stdin.buffer,
+    stats = correct(a.wl, a.inputs, out_dir, sys.stdin.buffer,
                     do_h2=a.h2, do_bx_format=a.bx,
                     n_buckets=a.nbuckets, is_haplotag=a.haplotag,
-                    n_threads=max(a.threads, 1))
+                    n_threads=max(a.threads, 1),
+                    distributed=distributed)
     sys.stderr.write(
         f":: Stats: no change: {stats['nochange']}\n"
         f"         no barcode: {stats['nobucket']}\n"

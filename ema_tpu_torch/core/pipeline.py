@@ -38,8 +38,15 @@ the hooks of the -x CLI (``cloud_id_base``, ``group_sink``,
 ``replay_sink``) and the contig-sharded ``ShardedAligner``.  Dropped from
 the JAX Aligner: compile-shape bucketing and the padded row layout with
 its ``row_map`` (torch runs eagerly, so owners index the oriented rows
-directly), the device mesh, the CPU placement of the jitted EM and the
-128 MB occ rule for device locate (``resolve_seed_impl``).
+directly), the CPU placement of the jitted EM and the 128 MB occ rule for
+device locate (``resolve_seed_impl``).
+
+``Aligner(devices=[...])`` splits the three batched device calls (the
+fused seed+locate, device locate and the SW scoring) over a data mesh
+(``_init_mesh``, ema_tpu/core/pipeline.py:278-309): the rows go in
+contiguous blocks, of sizes that differ by at most one, to the mesh's
+cells, each on its device and stream, and come back in row order, so the
+output equals the one-device run's byte for byte.
 """
 
 from __future__ import annotations
@@ -62,8 +69,9 @@ from ema_tpu_torch.ops import chaining
 from ema_tpu_torch.core.batch import CandidateSet, ReadBatch
 from ema_tpu_torch.core.em import dispatch_em_batch
 from ema_tpu_torch.index import fm
-from ema_tpu_torch.index.device import to_device_state
+from ema_tpu_torch.index.device import DeviceState, to_device_state
 from ema_tpu_torch.ops.sw import PACKED_MAX_WL, gather_score
+from ema_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from ema_tpu_torch.utils.backend import _tune_malloc, resolve_device
 
 WINDOW_PAD = 24          # slack around the chain diagonal for the SW window
@@ -160,11 +168,12 @@ def orient_device(codes: torch.Tensor, lens: torch.Tensor):
 
 class Aligner:
     """Holds the index state on ``device`` (the card unless the caller
-    names the CPU) and runs batched alignment."""
+    names the CPU) and runs batched alignment; with several ``devices``
+    its batched device calls are split over them (``_init_mesh``)."""
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
                  device="cuda", sw_impl: Optional[str] = None,
-                 seed_impl: Optional[str] = None):
+                 seed_impl: Optional[str] = None, devices=None):
         _tune_malloc()
         self.device = resolve_device(device)
         self.sw_impl = resolve_sw_impl(sw_impl)
@@ -184,6 +193,7 @@ class Aligner:
             aligner=dataclasses.replace(cfg.aligner, seeding=seeding))
         self.text_dev, self.fma = to_device_state(
             index, self.device, fm=self.seed_impl == "device")
+        self._init_mesh(devices)
         # the EM's side stream (core/em.dispatch_em_batch)
         self._em_stream = (torch.cuda.Stream(self.device)
                            if self.cfg.device_em and self.device.type == "cuda"
@@ -201,6 +211,63 @@ class Aligner:
         # optional fine-grained stage timers (utils/metrics.Metrics);
         # chunk workers run concurrently, so stage sums are thread-seconds
         self.metrics = None
+
+    def _init_mesh(self, devices) -> None:
+        """Multi-device: split the batched device calls over a data mesh
+        (ema_tpu/core/pipeline.py:278-309).
+
+        ``devices`` None is every visible card when
+        ``cfg.data_parallel_chips`` is on and the Aligner's device is a
+        card, else the Aligner's device alone.  With more than one, the
+        index state is copied once to each distinct device and
+        ``_on_blocks`` runs each batched call's rows in blocks along
+        ``data``.  One device: plain dispatch.
+        """
+        self.mesh = None
+        self._state_on = {self.device: DeviceState(self.text_dev, self.fma)}
+        if devices is None:
+            devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                       if self.cfg.data_parallel_chips
+                       and self.device.type == "cuda" else [self.device])
+        if len(devices) <= 1:
+            return
+        self.mesh = make_mesh(len(devices), 1, devices)
+        for d in self.mesh.distinct_devices:
+            if d not in self._state_on:
+                self._state_on[d] = DeviceState(
+                    self.text_dev.to(d),
+                    None if self.fma is None else self.fma.to(d))
+
+    def _blocks(self, n: int) -> list:
+        """(lo, hi, data index) of the row blocks of ``n`` rows, in row
+        order: contiguous, of sizes that differ by at most one, empty ones
+        skipped (the first kept when ``n`` is 0).  Unmeshed: one block,
+        index None."""
+        if self.mesh is None:
+            return [(0, n, None)]
+        k = self.mesh.shape[DATA_AXIS]
+        out = [(n * d // k, n * (d + 1) // k, d) for d in range(k)]
+        return [b for b in out if b[1] > b[0]] or out[:1]
+
+    @contextlib.contextmanager
+    def _cell(self, d):
+        """Data cell ``d``'s device, its stream current (the Aligner's
+        device when ``d`` is None)."""
+        if d is None:
+            yield self.device
+        else:
+            with self.mesh.cell(d) as dev:
+                yield dev
+
+    def _on_blocks(self, n: int, fn) -> list:
+        """``[fn(lo, hi, device) for each block of n rows]``, each on its
+        cell.  ``fn`` returns host arrays, so every block's work is done
+        when it returns."""
+        outs = []
+        for lo, hi, d in self._blocks(n):
+            with self._cell(d) as dev:
+                outs.append(fn(lo, hi, dev))
+        return outs
 
     def _smem_kmer_tab(self):
         """Per-index k-mer bi-interval table for SMEM round 3 (lazy).
@@ -287,27 +354,25 @@ class Aligner:
                 nsd = sm[4]
         else:
             # greedy chop, hit compaction and locate in one device call
-            budget = 4 * n_reads
             with self._mst("seed+locate[device]", n_reads):
-                packed, total, frd = fm.seed_locate_reads(
-                    self.fma, codes_dev, lens_dev, max_seeds=MAX_SEEDS,
-                    min_seed_len=params.seed_len,
-                    max_hits=params.max_hits_per_seed, budget=budget,
-                    max_occ=params.max_occ)
-                total = int(total)
-                if total <= budget:
-                    owner, qb, slen, hp = packed[:, :total].to(
-                        torch.int64).cpu().numpy()
-                    frac_rep_read = frd.cpu().numpy()
-            if hp is None:
+                got = self._seed_locate(codes_dev, lens_dev, params)
+            if got is not None:
+                owner, qb, slen, hp, frac_rep_read = got
+            else:
                 # more hits than the budget (a deep-repeat chunk): the
                 # unbounded two-step path, still on the device
-                with self._mst("seed[device]", n_reads):
-                    sd = fm.seed_reads(self.fma, codes_dev, lens_dev,
+                def seed(lo, hi, dev):
+                    sd = fm.seed_reads(self._state_on[dev].fm,
+                                       codes_dev[lo:hi].to(dev),
+                                       lens_dev[lo:hi].to(dev),
                                        max_seeds=MAX_SEEDS,
                                        min_seed_len=params.seed_len)
-                    seed_stack = tuple(a.cpu().numpy() for a in sd[:4])
-                    nsd = sd[4].cpu().numpy()
+                    return [a.cpu().numpy() for a in sd]
+
+                with self._mst("seed[device]", n_reads):
+                    sd = [np.concatenate(p) for p in
+                          zip(*self._on_blocks(n_reads, seed))]
+                    seed_stack, nsd = tuple(sd[:4]), sd[4]
 
         if hp is None:
             # repeat fraction per physical read: fraction of read bases
@@ -329,7 +394,10 @@ class Aligner:
                     hp = native.locate_batch(idx, rows_flat)
             else:
                 with self._mst("locate[device]", rows_flat.shape[0]):
-                    hp = locate_rows(self.fma, rows_flat)
+                    hp = np.concatenate(self._on_blocks(
+                        rows_flat.shape[0],
+                        lambda lo, hi, dev: locate_rows(
+                            self._state_on[dev].fm, rows_flat[lo:hi])))
 
         # map both-strands hits to (oriented read, forward-text pos):
         # a hit at fm pos p >= n is the reverse strand — the REVCOMP of the
@@ -391,6 +459,48 @@ class Aligner:
             return self._finalize_candidates(
                 batch, oriented, olens, n_reads, co, win_lo, win_len,
                 seedcov, weight, sw, params, frac_rep_read)
+
+    def _seed_locate(self, codes_dev, lens_dev, params):
+        """Greedy seeding, hit compaction and locate on the device
+        (``fm.seed_locate_reads``) with the budget of 4 hits a read:
+        (owner, qb, seed_len, text_pos, frac_rep) as host arrays, or None
+        when the batch has more hits than that.
+
+        On a mesh each data block runs the fused call with a budget of 4
+        hits a row of its own; the blocks' hits, in row order, are the
+        single call's, and the overflow decision is the single call's: the
+        sum of the blocks' totals against the batch's budget.  A block
+        that overflows its own budget while the batch does not is run
+        again with a budget of its total.
+        """
+        n_reads = codes_dev.shape[0]
+
+        def block(lo, hi, dev, budget=None):
+            budget = budget or 4 * (hi - lo)
+            packed, total, frd = fm.seed_locate_reads(
+                self._state_on[dev].fm, codes_dev[lo:hi].to(dev),
+                lens_dev[lo:hi].to(dev), max_seeds=MAX_SEEDS,
+                min_seed_len=params.seed_len,
+                max_hits=params.max_hits_per_seed, budget=budget,
+                max_occ=params.max_occ)
+            total = int(total)
+            hits = (packed[:, :total].to(torch.int64).cpu().numpy()
+                    if total <= budget else None)
+            return total, hits, frd.cpu().numpy()
+
+        outs = self._on_blocks(n_reads, block)
+        if sum(o[0] for o in outs) > 4 * n_reads:
+            return None
+        parts = []
+        for (total, hits, _), (lo, hi, d) in zip(outs,
+                                                 self._blocks(n_reads)):
+            if hits is None:
+                with self._cell(d) as dev:
+                    _, hits, _ = block(lo, hi, dev, budget=total)
+            hits[0] += lo
+            parts.append(hits)
+        owner, qb, slen, hp = np.concatenate(parts, axis=1)
+        return owner, qb, slen, hp, np.concatenate([o[2] for o in outs])
 
     def _score_windows(self, oriented_dev, olens_dev, owners, win_lo,
                        win_len, wl=None, host=None,
@@ -455,14 +565,18 @@ class Aligner:
                     for s in range(0, N, SW_CHUNK)]
             return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
 
-        def put(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(
-                self.device)
+        def score(lo, hi, dev):
+            def put(a, dtype):
+                return torch.from_numpy(
+                    np.ascontiguousarray(a[lo:hi], dtype)).to(dev)
 
-        out = gather_score(
-            self.text_dev, oriented_dev, olens_dev, put(owners, np.int32),
-            put(win_lo, np.int64), put(win_len, np.int32),
-            put(wl_cand, np.int32), scorer=scorer, **kw).cpu().numpy()
+            return gather_score(
+                self._state_on[dev].text, oriented_dev.to(dev),
+                olens_dev.to(dev), put(owners, np.int32),
+                put(win_lo, np.int64), put(win_len, np.int32),
+                put(wl_cand, np.int32), scorer=scorer, **kw).cpu().numpy()
+
+        out = np.concatenate(self._on_blocks(N, score))
         return {k: np.ascontiguousarray(out[:, c])
                 for c, k in enumerate(("score", "qb", "qe", "ref_end"))}
 
@@ -1063,14 +1177,16 @@ class ShardedAligner(Aligner):
 
     def __init__(self, index, cfg: Optional[config.RunConfig] = None, *,
                  device="cuda", sw_impl: Optional[str] = None,
-                 seed_impl: Optional[str] = None):
+                 seed_impl: Optional[str] = None, devices=None):
         if not index.shards:
             raise ValueError("ShardedAligner: the index has no shards")
         self.index = index                    # ShardedIndex facade
         self.subs = [Aligner(sh, cfg, device=device, sw_impl=sw_impl,
-                             seed_impl=seed_impl) for sh in index.shards]
+                             seed_impl=seed_impl, devices=devices)
+                     for sh in index.shards]
         first = self.subs[0]
         self.device, self.sw_impl = first.device, first.sw_impl
+        self.mesh = first.mesh
         self.seed_impl = first.seed_impl
         self.cfg = first.cfg                  # auto defaults resolved
         self._em_stream = first._em_stream

@@ -60,6 +60,13 @@ class FMIndexArrays:
             primary=int(idx.primary), sa_rate=int(idx.sa_rate),
             n=int(idx.fm_n))
 
+    def to(self, device) -> "FMIndexArrays":
+        """The same arrays on ``device`` (self where they are there)."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
     """int32 bits -> int64 in [0, 2^32)."""

@@ -1,17 +1,77 @@
-"""Bucket-to-host assignment and coordinate-sorted SAM merging.
+"""Multi-host orchestration: buckets -> hosts, collectives, shard merge
+(ema_tpu/parallel/distrib.py).
 
-The jax-free half of ema_tpu/parallel/distrib.py:45-147, copied under its
-names: the port cannot import that module, because
-ema_tpu/parallel/__init__.py imports step.py, which imports jax.
-``init_distributed`` and ``allreduce_counts`` (jax.distributed) wait for
-the port's multi-host slice.
+The reference scales across machines with GNU parallel over bucket files
+and merges per-bucket BAMs with `sambamba merge` (README.md:94-155: the
+filesystem is the interconnect).  The port's equivalents:
+
+  - one process per host, joined by ``torch.distributed`` over gloo
+    (``init_distributed``; the JAX package's jax.distributed);
+  - whole barcode buckets hashed to hosts (``buckets_for_host``), so no
+    barcode's reads ever span hosts and cloud/EM state needs no cross-host
+    merge: the same invariant the reference gets from its bucket files;
+  - global preprocessing priors summed across the processes
+    (``allreduce_counts`` replaces merging .ema-ncnt files on disk,
+    SURVEY.md §5.8 (i));
+  - per-host sorted SAM shards merged by key (``merge_sorted_shards``,
+    the analog of `sambamba merge`).
+
+The counts are host numpy arrays: gloo carries them over TCP, and no
+NCCL is needed.
 """
 
 from __future__ import annotations
 
 import heapq
 import os
-from typing import Iterable, List, Optional, Sequence
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+def init_distributed(coordinator: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> Tuple[int, int]:
+    """Join the process group of ``num_processes`` processes whose rank 0
+    listens at ``coordinator`` (host:port), over gloo; without a
+    coordinator and with no group already joined, a no-op.
+
+    Returns (process_id, process_count): (0, 1) for a single process.
+    """
+    import torch.distributed as dist
+
+    if coordinator is not None and not dist.is_initialized():
+        if num_processes is None or process_id is None:
+            raise ValueError("init_distributed: a coordinator needs the "
+                             "number of processes and this process's id")
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coordinator}",
+            world_size=num_processes, rank=process_id)
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def allreduce_counts(counts: np.ndarray) -> np.ndarray:
+    """Sum per-host count vectors across processes (preproc priors).
+
+    Single process: identity.  Several: every process's vector is
+    gathered and the stack summed over its first axis in rank order, as
+    the JAX package's ``process_allgather(...).sum(axis=0)``, so float64
+    priors add up in the same order (a gloo all_reduce promises no order
+    past two ranks).  Replaces the reference's on-disk merge of .ema-ncnt
+    files (correct.cc:288-337).
+    """
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return counts
+    local = torch.from_numpy(np.ascontiguousarray(counts))
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, local)
+    return np.stack([p.numpy() for p in parts]).sum(axis=0)
 
 
 def buckets_for_host(paths: Sequence[str], process_id: int,

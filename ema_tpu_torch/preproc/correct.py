@@ -268,13 +268,16 @@ def correct(whitelist_path: str, input_prefixes: List[str], output_dir: str,
     neighbor math releases the GIL) — the analog of the reference's
     std::thread chunks (correct.cc:244-261); merging stays sequential.
 
-    ``distributed`` (the JAX package's multi-host mode, where barcode
-    priors and bucket sizes are all-reduced across hosts) is not ported:
-    True raises.
+    ``distributed``: multi-host mode (one process per host, each given
+    only its LOCAL count outputs and FASTQ chunk).  Whitelist priors and
+    per-barcode read totals are summed across the processes
+    (parallel/distrib.allreduce_counts, over gloo), so the H1/H2 decisions
+    and the greedy bucket assignment are globally identical: every host
+    routes a given barcode to the same bucket index, and per-host bucket
+    files concatenate into the exact logical buckets a single-process run
+    produces.  This replaces the reference's single-host preproc reading
+    every .ema-ncnt from disk (correct.cc:288-337; SURVEY §5.8 (i)).
     """
-    if distributed:
-        raise NotImplementedError(
-            "multi-host preproc is not ported (one host only)")
     os.makedirs(output_dir, exist_ok=True)
     if is_haplotag:
         # haplotag: no whitelist / no correction — barcodes come from
@@ -294,6 +297,9 @@ def correct(whitelist_path: str, input_prefixes: List[str], output_dir: str,
                               else prefix + ".ema-ncnt")
         idxc, hit = lookup_sorted(wl, bcs)
         np.add.at(prior_counts, idxc[hit], cnts[hit])
+    if distributed:
+        from ema_tpu_torch.parallel.distrib import allreduce_counts
+        prior_counts = allreduce_counts(prior_counts)
     total_counts = (prior_counts + 1.0).sum()
     priors = (prior_counts + 1.0) / total_counts
 
@@ -345,6 +351,10 @@ def correct(whitelist_path: str, input_prefixes: List[str], output_dir: str,
     else:
         for kc in all_blocks():
             merge(*run_one(kc))
+
+    if distributed:
+        from ema_tpu_torch.parallel.distrib import allreduce_counts
+        n_reads_per_bc = allreduce_counts(n_reads_per_bc)
 
     # 3. greedy bucket assignment (correct.cc:389-412): every whitelist
     # barcode, visited in the reference's map-iteration order over the

@@ -5,9 +5,9 @@ the port's -x runs (coalesced, --no-coalesce -j 1/2/3 over skewed
 buckets, manifest resume, a lost part, --sort shards merged), --nobc,
 -i, -1/-2 --sort and the count -> preproc -> align -x chains must give
 the JAX package's SAM bodies byte for byte (the @PG line names the
-port, so headers differ).  Also: the multi-host flags are refused,
---profile writes a trace, the MI namespace width fits int32, and the
-port's jax-free distrib functions equal JAX's.
+port, so headers differ).  Also: the multi-host flags behave as the
+JAX CLI's, --profile writes a trace, the MI namespace width fits int32,
+and the port's jax-free distrib functions equal JAX's.
 """
 
 import io
@@ -24,6 +24,7 @@ from ema_tpu.parallel import distrib as jax_distrib
 from ema_tpu_torch import cli
 from ema_tpu_torch.parallel import distrib
 from simulate import rand_genome, simulate_pairs, to_str
+from test_oracle_preproc import make_dataset, write_wl
 from torch_handover import jax_native_built  # noqa: F401 (autouse)
 
 
@@ -321,15 +322,72 @@ def test_count_preproc_align_chain_equals_jax(platform, plat_world,
 
 
 @pytest.mark.parametrize("argv", [
-    ["align", "-r", "ref.fa", "-x", "--coordinator", "h:1234", "b0"],
-    ["align", "-r", "ref.fa", "-s", "b0", "--nprocs", "2"],
-    ["align", "-r", "ref.fa", "-s", "b0", "--procid=1"],
-    ["preproc", "-w", "wl.txt", "-o", "out", "--coordinator", "h:1234",
-     "c.ema-ncnt"]])
-def test_multi_host_flags_exit_1(argv, capsys):
-    assert cli.main([argv[0], "--device", "cpu", *argv[1:]]
-                    if argv[0] == "align" else argv) == 1
-    assert "multi-host is not ported yet" in capsys.readouterr().err
+    ["align", "-x", "--coordinator", "h:1234"],
+    ["align", "-s", "--nprocs", "2"],
+    ["align", "-s", "--procid=1"],
+    ["preproc", "--coordinator", "h:1234"]])
+def test_multi_host_flags_exit_1(argv, x_world, tmp_path, monkeypatch):
+    """The multi-host flags behave as in ema_tpu/cli.py (the name is kept
+    from the refusal these cases replace): ``--nprocs`` and ``--procid``
+    without ``--coordinator`` are ignored, so the run equals the one
+    without them; ``--coordinator`` reaches ``init_distributed`` (here
+    reporting process 1 of 2), after which ``align -x`` writes shard 1 of
+    2 to ``out.shard01of02.sam``, equal to ``--shard 1 --nshards 2``, and
+    ``preproc`` writes under ``out/host01`` what a one-process run writes
+    (with no process group, the counts are summed over one process)."""
+    from ema_tpu_torch.parallel import distrib as port_distrib
+
+    seen = []
+
+    def init(*args):
+        seen.append(args)
+        return 1, 2
+
+    monkeypatch.setattr(port_distrib, "init_distributed", init)
+    tmp, fa, buckets = x_world
+    mode, flags = argv[0], argv[1:]
+    if mode == "preproc":
+        wl, fq = make_dataset(seed=3, n_wl=60, n_pairs=120)
+        wl_path = write_wl(tmp_path, wl)
+
+        class FakeStdin:
+            buffer = io.BytesIO(fq)
+
+        monkeypatch.setattr("sys.stdin", FakeStdin)
+        cnt = str(tmp_path / "c")
+        assert cli.main(["count", "-w", str(wl_path), "-o", cnt]) == 0
+        outs = {}
+        for name, extra in (("plain", []), ("multi", flags)):
+            FakeStdin.buffer = io.BytesIO(fq)
+            out = tmp_path / name
+            assert cli.main(["preproc", "-w", str(wl_path), "-o", str(out),
+                             "-n", "3", "-h", *extra,
+                             cnt + ".ema-ncnt"]) == 0
+            outs[name] = out
+        got = outs["multi"] / "host01"
+        names = sorted(p.name for p in outs["plain"].iterdir())
+        assert names and sorted(p.name for p in got.iterdir()) == names
+        for n in names:
+            assert (got / n).read_bytes() == (outs["plain"] / n).read_bytes()
+    elif flags[0] == "-x":
+        out = str(tmp_path / "out.sam")
+        assert _port(["align", "-r", fa, "-x", "-o", out, *flags[1:],
+                      *buckets]) == 0
+        want = str(tmp_path / "want.sam")
+        assert _port(["align", "-r", fa, "-x", "-o", want, "--shard", "1",
+                      "--nshards", "2", *buckets]) == 0
+        assert not os.path.exists(out)
+        got = body(str(tmp_path / "out.shard01of02.sam"))
+        assert got and got == body(want)
+    else:
+        outs = {}
+        for name, extra in (("plain", []), ("multi", flags[1:])):
+            outs[name] = str(tmp_path / f"{name}.sam")
+            assert _port(["align", "-r", fa, "-s", buckets[0], "-o",
+                          outs[name], *extra]) == 0
+        assert body(outs["multi"]) == body(outs["plain"])
+        assert body(outs["plain"])
+    assert seen == ([("h:1234", None, None)] if "h:1234" in flags else [])
 
 
 @pytest.mark.parametrize("device", [["--device", "cuda"], []],

@@ -484,12 +484,37 @@ def test_preproc_count_and_correct_equal_jax(h2, tmp_path):
 
 
 def test_correct_refuses_multi_host(tmp_path):
-    from ema_tpu_torch.preproc.correct import correct
+    """``correct(..., distributed=True)`` in one process (the name is kept
+    from the refusal it replaces): with no process group the priors and
+    read totals are summed over one process, so the port gives the JAX
+    package's bucket files and statistics, byte for byte, under
+    ``distributed=True`` as without it."""
+    import torch.distributed as dist
 
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        correct("wl.txt", ["c"], str(tmp_path / "o"), io.BytesIO(b""),
-                distributed=True)
-    assert not (tmp_path / "o").exists()
+    rng = np.random.default_rng(13)
+    barcodes = ["".join("ACGT"[k] for k in rng.integers(0, 4, 16))
+                for _ in range(30)]
+    wl = tmp_path / "wl.txt"
+    wl.write_text("".join(b + "\n" for b in barcodes))
+    blob = _interleaved(rng, barcodes[:20], 200, False)
+    files = {}
+    for name, dist_flag in (("ema_tpu", False), ("ema_tpu", True),
+                            ("ema_tpu_torch", True)):
+        count = importlib.import_module(name + ".preproc.count").count
+        correct = importlib.import_module(name + ".preproc.correct").correct
+        d = tmp_path / f"{name}_{dist_flag}"
+        d.mkdir()
+        count(str(wl), str(d / "c"), io.BytesIO(blob))
+        st = correct(str(wl), [str(d / "c")], str(d / "bkt"),
+                     io.BytesIO(blob), do_h2=True, n_buckets=4,
+                     distributed=dist_flag)
+        files[name, dist_flag] = (st, {
+            p.name: p.read_bytes() for p in sorted((d / "bkt").iterdir())})
+    assert not dist.is_initialized()
+    want = files["ema_tpu", False]
+    assert files["ema_tpu", True] == want
+    assert files["ema_tpu_torch", True] == want
+    assert len(want[1]) >= 5 and want[0]["h1"] > 0
 
 
 @pytest.mark.parametrize("k", [0, -1])

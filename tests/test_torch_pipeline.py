@@ -402,6 +402,50 @@ for _ in range(2):     # the second run resumes from the manifest
                  *buckets]) == 0
 with open(xout) as f:
     assert len([ln for ln in f if not ln.startswith("@")]) == len(lines)
+# preproc and align -x as two processes of one gloo group, each behind
+# the finder: the hosts' buckets concatenate to the one-process buckets,
+# and the two -x shards hold the one-process records
+import socket, subprocess
+def two_processes(args_of, stdin_of=lambda i: None):
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = "127.0.0.1:%d" % s.getsockname()[1]
+    s.close()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", chip_smoke.GUARDED_CLI, args_of(i)[0],
+         "--coordinator", coord, "--nprocs", "2", "--procid", str(i),
+         *args_of(i)[1:]], stdin=stdin_of(i), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE) for i in range(2)]
+    for p in procs:
+        err = p.communicate(timeout=300)[1]
+        assert p.returncode == 0, err.decode()[-3000:]
+with open(fq) as f:
+    fq_lines = f.readlines()
+half = (len(fq_lines) // 16) * 8
+for i, part in enumerate((fq_lines[:half], fq_lines[half:])):
+    with open(os.path.join(tmp, "half%d.fq" % i), "w") as f:
+        f.writelines(part)
+    with open(os.path.join(tmp, "half%d.fq" % i), "rb") as fh:
+        Stdin.buffer = fh
+        assert main(["count", "-w", wl, "-o",
+                     os.path.join(tmp, "hcnt%d" % i)]) == 0
+halves = [open(os.path.join(tmp, "half%d.fq" % i), "rb") for i in range(2)]
+two_processes(lambda i: ["preproc", "-w", wl, "-o",
+                         os.path.join(tmp, "mbkt"), "-n", "3",
+                         os.path.join(tmp, "hcnt%d.ema-ncnt" % i)],
+              lambda i: halves[i])
+for b in buckets:
+    name = os.path.basename(b)
+    merged = b"".join(open(os.path.join(tmp, "mbkt", "host%02d" % i, name),
+                           "rb").read() for i in range(2))
+    assert merged == open(b, "rb").read(), name
+two_processes(lambda i: ["align", "--device", "cpu", "-r", ref, "-x", "-o",
+                         os.path.join(tmp, "m.sam"), *buckets])
+mrecs = []
+for i in range(2):
+    with open(os.path.join(tmp, "m.shard%02dof02.sam" % i)) as f:
+        mrecs += [ln for ln in f if not ln.startswith("@")]
+assert len(mrecs) == len(lines)
 # a contig-sharded index aligns through the ShardedAligner
 ref2 = os.path.join(tmp, "two.fa")
 with open(ref2, "w") as f:
@@ -423,10 +467,12 @@ print("NO_JAX_OK", len(recs))
 
 
 def test_align_and_cli_never_import_jax(tmp_path):
-    """Every single-host mode of the port (count, preproc, index, align
-    -s / -x --sort --manifest, samdiff, a sharded index, both EM and both seed
-    placements, bench_sw cpu) in a subprocess whose import finder refuses
-    jax, jaxlib and ema_tpu: none of their modules is loaded at the end."""
+    """Every mode of the port (count, preproc, index, align -s / -x
+    --sort --manifest, samdiff, a sharded index, both EM and both seed
+    placements, bench_sw cpu, and preproc and align -x with --coordinator
+    as two processes of one gloo group) in subprocesses whose import
+    finder refuses jax, jaxlib and ema_tpu: none of their modules is
+    loaded at the end."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
