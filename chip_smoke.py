@@ -28,7 +28,11 @@ failure raises and the run exits non-zero:
      probe measures is logged beside them), sw_batch at 8 and 32 threads
      a candidate and sw_banded_packed at 8 x 8 and 16 x 4 lanes, each
      form held to the launch's own choice (packed also on reads to 1023
-     bp whose start rows lie past 256);
+     bp whose start rows lie past 256); sw_banded in each class's
+     large-call and small-call forms bit-exact on every set, under a
+     scoring past a signed byte (match 200, mismatch 150) and on the tie
+     sets (TIE_SETS, WARP_TIE_SET), and both forms timed across call
+     sizes for corridors of 200 to 1000 lanes;
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -49,13 +53,15 @@ failure raises and the run exits non-zero:
      scorer, with pairs/s, launches and accuracy against the simulation
      truth; the default run also gives the stage split and the peak
      device memory, passes check_sam with no fault and re-scores one
-     real chunk with the native host scorer, banded16 and tier64 must
+     real chunk with the native host scorer, sw_banded's launches of a
+     pass split by chained and rescue calls, banded16 and tier64 must
      give the default's SAM records, and scan re-scores one real chunk
      with its plain version on the card; every SW kernel timed on the
      default run's recorded chained and rescue calls (cells, ms, Gcell/s,
-     share of the bound; sw_banded's and sw_banded16's launch rules and
-     the thread forms of sw_banded16, sw_banded_packed and sw_batch on that
-     chained call); then device EM on and
+     share of the bound, each thread form apart; sw_banded's and
+     sw_banded16's launch rules and the thread forms of sw_banded,
+     sw_banded16, sw_banded_packed and sw_batch on that chained call);
+     then device EM on and
      off in turns (on, off, off, on) with pairs/s, the whole stage table
      and 0 differing records, one torch.profiler pass (device idle share,
      the EM's launches per emit batch and per pass, and whether the EM
@@ -120,6 +126,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -332,6 +339,91 @@ def _to_dev(dev, **arrays):
             for k, v in arrays.items()}
 
 
+def cand_inputs(text, cands) -> dict:
+    """gather_score's inputs (numpy) for ``cands``, tuples (read codes,
+    win_lo, win_len, wl) over ``text``: candidate b owns read b."""
+    L = max(max(len(c[0]) for c in cands), 1)
+    oriented = np.full((len(cands), L), 4, np.uint8)
+    for b, c in enumerate(cands):
+        oriented[b, :len(c[0])] = c[0]
+    col = [np.array([c[i] for c in cands]) for i in (1, 2, 3)]
+    return dict(text=text, oriented=oriented,
+                olens=np.array([len(c[0]) for c in cands], np.int32),
+                owners=np.arange(len(cands), dtype=np.int32),
+                win_lo=col[0].astype(np.int64),
+                win_len=col[1].astype(np.int32), wl=col[2].astype(np.int32))
+
+
+# Two-letter reads and windows under scorings with many equal paths, each
+# set drawn as ``tie_batch`` draws it: in the picked candidates the output
+# is decided by one tie rule, so that reversing it in the plain sweep (or
+# in a kernel's emulation) changes their (score, qb, qe, ref_end).  Set 1
+# (open 0, extend 1, 4,096 drawn): the scan's nearer-source rule (391 ...
+# 2451), the merge's diag >= horizontal (9, 15, 16) and horizontal >=
+# vertical (54, 167), the vertical gap's open >= extend (499, 3310) and the
+# diagonal's H >= fresh (18, 21).  Set 2 (open 1, extend 0, 1,024 drawn):
+# the nearer-source rule between the threads' carries (182, 424, 789, 888).
+TIE_SETS = (
+    (dict(match=1, mismatch=1, gap_open=0, gap_extend=1, clip=0), 4096,
+     (391, 584, 951, 1538, 1715, 2308, 2451, 9, 15, 16, 54, 167, 499, 3310,
+      18, 21)),
+    (dict(match=1, mismatch=1, gap_open=1, gap_extend=0, clip=0), 1024,
+     (182, 424, 789, 888)),
+)
+# The nearer-source rule between the warps of a several-warp candidate
+# (``warp_tie_batch``; open 3, extend 0): the warp carry of sw_banded's
+# 4 warps x 32 x 4 form (the small call's of the 512 class) decides every
+# pick (reversing it turns qb from 2 to 0), the thread carry of its
+# one-warp forms.
+WARP_TIE_SET = (dict(match=1, mismatch=1, gap_open=3, gap_extend=0, clip=0),
+                12, (0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11))
+
+
+def tie_batch(B, picks):
+    """A seeded batch of B candidates: reads of 4..24 bases and windows of
+    4..92 over {0, 1}, corridors 1..64, windows laid end to end as the
+    text; returns the text and the picked candidates."""
+    rng = np.random.default_rng(0)
+    m, n = 24, 92
+    reads = rng.integers(0, 2, (B, m))
+    rl = rng.integers(4, m + 1, B)
+    wl = rng.integers(1, 65, B)
+    refs = rng.integers(0, 2, (B, n))
+    nl = rng.integers(4, n + 1, B)
+    text = refs.reshape(-1).astype(np.uint8)
+    return text, [(reads[b, :rl[b]], b * n, int(nl[b]), int(wl[b]))
+                  for b in picks]
+
+
+def warp_tie_batch(B, picks, n=300):
+    """B candidates whose horizontal gap has two sources of one value in
+    two warps: windows of N bases (laid end to end as the text) holding,
+    for a two-letter read of m bases, its first c bases with one mismatch
+    on a lane below 100 (value c - 2 at row c, start row 0), its bases
+    2..c on a lane of 130..189 (value c - 2, start row 2) and its bases
+    c..m on a lane to the right of both, reached by a gap from row c;
+    corridors of 257..512 lanes (the 512 class).  Returns the text and the
+    picked candidates."""
+    rng = np.random.default_rng(1)
+    text = np.full((B, n), 4, np.uint8)
+    cands = []
+    for b in range(B):
+        c = int(rng.integers(6, 11))
+        m = int(rng.integers(c + 4, 25))
+        read = rng.integers(0, 2, m)
+        ka = int(rng.integers(0, 100))
+        kb = int(rng.integers(130, 190))
+        kt = int(rng.integers(kb + 5, 241))
+        far = read[:c].copy()
+        far[int(rng.integers(2, c - 2))] ^= 1
+        text[b, ka:ka + c] = far                  # rows 1..c on lane ka
+        text[b, kb + 2:kb + c] = read[2:c]        # rows 3..c on lane kb
+        text[b, kt + c:kt + m] = read[c:]         # rows c+1..m on lane kt
+        wl = int(rng.integers(257, 513))
+        cands.append((read, b * n, int(kt + m + rng.integers(0, 10)), wl))
+    return text.reshape(-1), [cands[b] for b in picks]
+
+
 def sw_cases(dev, seed=7):
     """Named input sets for gather_score: the SW_CHUNK chained shape, the
     rescue shape and edge sets (one per lanes-per-thread variant of the
@@ -419,11 +511,11 @@ def sw_cases(dev, seed=7):
     oriented2, pos2 = _reads_from_text(rng, text, R2, L2, lens2)
     for cap in (32, 64, 128, 256, 512, 768, 1024):
         cases[f"edge_w{cap}"] = edge_set(oriented2, lens2, pos2, cap, 1024)
-    # the same at the size from which sw_banded's narrow classes take
-    # part-warp segments (8 and 16 threads a candidate)
+    # the same past 8 candidates an SM, where sw_banded16's and
+    # sw_banded_packed's narrow classes take their large-call forms
     for cap in (32, 56, 64, 96):
-        cases[f"edge_w{cap}_n{LARGE_CLASS}"] = edge_set(
-            oriented2, lens2, pos2, cap, LARGE_CLASS)
+        cases[f"edge_w{cap}_n{LARGE_CALL}"] = edge_set(
+            oriented2, lens2, pos2, cap, LARGE_CALL)
     # long reads (500..1023 bp) with corridors past one warp
     R3, L3 = 128, 1023
     lens3 = rng.integers(500, L3 + 1, R3).astype(np.int32)
@@ -453,18 +545,17 @@ def sw_cases(dev, seed=7):
     return cases
 
 
-# kLargeClass of csrc/sw_banded.cu: from this many candidates a class of at
-# most 96 lanes takes part-warp segments
-LARGE_CLASS = 6144
-# sw_batch and sw_banded16 take their part-warp forms from more than 8
-# candidates an SM (csrc/sw_batch.cu, csrc/sw_banded16.cu): a size on that
-# side of the threshold on any card, and the threshold on a card of 132 SMs
-SCAN_LARGE_CALL = 2048
+# sw_batch, sw_banded16 and sw_banded_packed take their large-call forms
+# from more than 8 candidates an SM (kWarpCallPerSm, kWarpClassPerSm in
+# csrc/; sw_banded's classes cross at 1 to 16 an SM, its launch table): a
+# size on that side of the threshold on any card, and the threshold on a
+# card of 132 SMs
+LARGE_CALL = 2048
 WARP_CALL_132 = 8 * 132
 # (longest read, candidates) of sw_batch's thread-form cases: every form of
 # its table (8 x 4, 7, 10, 13; 32 x 4, 8, 16, 24, 32 rows)
 SCAN_FORM_CASES = (
-    [(top, SCAN_LARGE_CALL) for top in (1, 31, 56, 80, 100, 200, 250)]
+    [(top, LARGE_CALL) for top in (1, 31, 56, 80, 100, 200, 250)]
     + [(1, 512), (31, 512), (100, 512), (250, 512), (512, 256), (600, 256),
        (1023, 256)])
 # the cases each kernel is held to: every case but sw_batch's thread-form
@@ -472,12 +563,16 @@ SCAN_FORM_CASES = (
 KERNEL_CASES = {
     "sw_banded": None, "sw_banded16": None, "sw_batch": "all",
     "sw_banded_packed": ("chained_w64", "odd_w64", "mixed_w64", "edge_w32",
-                         "edge_w64", f"edge_w56_n{LARGE_CLASS}",
+                         "edge_w64", f"edge_w56_n{LARGE_CALL}",
                          "long_w64"),
 }
 # scorer -> the sets on which its kernel's thread forms (ops/sw.FORM_GROUPS)
 # are held to the launch's own choice and timed against each other
-FORM_CASES = {"scan": ("chained", "rescue"), "packed": ("chained_w64",)}
+FORM_CASES = {"banded": ("chained", "rescue", "mixed"),
+              "scan": ("chained", "rescue"), "packed": ("chained_w64",)}
+# a scoring past a signed byte, which sw_banded takes in the mask form of
+# its lookups (the JAX banded scorer takes any int32 scoring)
+WIDE_SCORES = dict(SW_KW, match=200, mismatch=150)
 # the pipeline shape each kernel is timed at, then the extra shapes
 TIMED = {"sw_banded": ("chained", "rescue", "mixed"),
          "sw_banded16": ("chained", "rescue"),
@@ -485,9 +580,9 @@ TIMED = {"sw_banded": ("chained", "rescue", "mixed"),
          "sw_batch": ("chained", "rescue")}
 
 
-def _call(fn, c, scorer):
+def _call(fn, c, scorer, scoring=SW_KW):
     return fn(c["text"], c["oriented"], c["olens"], c["owners"],
-              c["win_lo"], c["win_len"], c["wl"], scorer=scorer, **SW_KW)
+              c["win_lo"], c["win_len"], c["wl"], scorer=scorer, **scoring)
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -504,28 +599,27 @@ def _time_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def _planned(c, scorer, group=0):
+def _planned(c, scorer, group=0, scoring=SW_KW):
     """(out, launch) of the wrapper's plan for the scorer's kernel on
-    ``c``; ``group`` asks sw_batch, sw_banded16 or sw_banded_packed for one
-    thread form (``ops/sw.FORM_GROUPS``) in place of the launch's own
-    choice."""
+    ``c``; ``group`` asks the kernel for one thread form
+    (``ops/sw.FORM_GROUPS``) in place of the launch's own choice."""
     from ema_tpu_torch.ops.sw import _plan_kernel
 
     return _plan_kernel(c["text"], c["oriented"], c["olens"], c["owners"],
                         c["win_lo"], c["win_len"], c["wl"], scorer=scorer,
-                        group=group, **SW_KW)
+                        group=group, **scoring)
 
 
-def _kernel_ms(c, scorer, reps: int, group=0) -> float:
+def _kernel_ms(c, scorer, reps: int, group=0, scoring=SW_KW) -> float:
     """Mean device time of the scorer's kernel launches alone on ``c``:
     the wrapper's plan (checks, the bounds' readback, the class sort) is
     made once, outside the timed window."""
-    return _time_ms(_planned(c, scorer, group)[1], reps)
+    return _time_ms(_planned(c, scorer, group, scoring)[1], reps)
 
 
-def _form_out(c, scorer, group) -> torch.Tensor:
+def _form_out(c, scorer, group, scoring=SW_KW) -> torch.Tensor:
     """The kernel's output on ``c`` at one thread form."""
-    out, launch = _planned(c, scorer, group)
+    out, launch = _planned(c, scorer, group, scoring)
     launch()
     torch.cuda.synchronize()
     return out
@@ -583,7 +677,7 @@ def _bound(name, c, scorer, rates) -> tuple:
 
 
 def phase_kernel(dev, card: str) -> dict:
-    from ema_tpu_torch.ops.sw import (LAUNCHES, gather_score,
+    from ema_tpu_torch.ops.sw import (FORM_GROUPS, LAUNCHES, gather_score,
                                       gather_score_ref, reset_counts)
     from ema_tpu_torch.tools import bench_sw
 
@@ -618,6 +712,11 @@ def phase_kernel(dev, card: str) -> dict:
                 f"max_abs_err={err}")
             check(bad == 0, f"{name} kernel disagrees with the plain "
                             f"version on {cname} ({bad} candidates)")
+            if scorer == "banded":      # every form on every set
+                for group in FORM_GROUPS[scorer]:
+                    check(torch.equal(_form_out(c, scorer, group), want),
+                          f"{name} in its form {group} disagrees with the "
+                          f"plain version on {cname}")
         st = {"max_abs_err": max_err}
         for cname in TIMED[name]:
             c = cases[cname]
@@ -645,6 +744,8 @@ def phase_kernel(dev, card: str) -> dict:
                 f"card: {card}")
         stats[name] = st
     _phase_forms(cases, card)
+    _phase_banded_scorings(dev, cases, card)
+    _phase_wide_forms(cases, card)
     # the packed tier's shape through the one-warp banded kernel
     c = cases["chained_w64"]
     ms = _time_ms(lambda: _call(gather_score, c, "banded"), 20)
@@ -656,7 +757,8 @@ def phase_kernel(dev, card: str) -> dict:
 
 
 def _phase_forms(cases, card: str) -> None:
-    """The thread forms of sw_batch (8 and 32 threads a candidate) and
+    """The thread forms of sw_banded (each class's large-call and
+    small-call forms), sw_batch (8 and 32 threads a candidate) and
     sw_banded_packed (8 x 8 and 16 x 4 lanes) against each other on the
     sets of FORM_CASES (the launch's own choice is timed by the caller),
     each held to the default form's output."""
@@ -670,12 +772,88 @@ def _phase_forms(cases, card: str) -> None:
             row = []
             for group in FORM_GROUPS[scorer]:
                 check(torch.equal(_form_out(c, scorer, group), want),
-                      f"{name} at {group} threads a candidate differs on "
+                      f"{name} at {_form_label(scorer, group)} differs on "
                       f"{cname}")
-                row.append(f"{group} threads "
+                row.append(f"{_form_label(scorer, group)} "
                            f"{_kernel_ms(c, scorer, 10, group)} ms")
             log(f"{name} thread forms [{cname}] N={c['owners'].shape[0]}, "
                 f"the launch alone: " + ", ".join(row) + f"; card: {card}")
+
+
+def _form_label(scorer, group) -> str:
+    """What ``group`` asks of the scorer's kernel (ops/sw.FORM_GROUPS)."""
+    if scorer in ("banded", "banded16"):
+        return {8: "the large-call form", 32: "the small-call form"}[group]
+    return f"{group} threads"
+
+
+def _phase_banded_scorings(dev, cases, card: str) -> None:
+    """sw_banded beyond the default scoring, in every form (the launch's
+    own choice and each of FORM_GROUPS): a scoring past a signed byte
+    (WIDE_SCORES, the mask form of the lookups) on the pipeline's shapes,
+    the edge sets and corridors to 4096, and the tie sets (TIE_SETS,
+    WARP_TIE_SET), each bit-exact against the plain version."""
+    from ema_tpu_torch.ops.sw import FORM_GROUPS, gather_score_ref
+
+    forms = (0, *FORM_GROUPS["banded"])
+    for cname in ("chained", "rescue", "mixed", "edge_w64",
+                  f"edge_w64_n{LARGE_CALL}", "edge_w1024", "long_w4096"):
+        c = cases[cname]
+        want = _call(gather_score_ref, c, "banded", WIDE_SCORES)
+        for group in forms:
+            check(torch.equal(_form_out(c, "banded", group, WIDE_SCORES),
+                              want),
+                  f"sw_banded (match {WIDE_SCORES['match']}, mismatch "
+                  f"{WIDE_SCORES['mismatch']}, form {group}) differs from "
+                  f"the plain version on {cname}")
+        log(f"sw_banded [{cname}] N={c['owners'].shape[0]} with match "
+            f"{WIDE_SCORES['match']}, mismatch {WIDE_SCORES['mismatch']} "
+            f"(the mask form of the lookups): bit-exact in forms {forms}, "
+            f"the launch alone {_kernel_ms(c, 'banded', 10, 0, WIDE_SCORES)}"
+            f" ms against {_kernel_ms(c, 'banded', 10)} ms with byte "
+            f"scores; card: {card}")
+    sets = [(scoring, tie_batch(B, picks)) for scoring, B, picks in TIE_SETS]
+    scoring, B, picks = WARP_TIE_SET
+    sets.append((scoring, warp_tie_batch(B, picks)))
+    for k, (scoring, (text, cands)) in enumerate(sets):
+        c = _to_dev(dev, **cand_inputs(text, cands))
+        want = _call(gather_score_ref, c, "banded", scoring)
+        for group in forms:
+            check(torch.equal(_form_out(c, "banded", group, scoring), want),
+                  f"sw_banded (form {group}) breaks a tie rule of set {k}")
+        log(f"sw_banded on tie set {k} ({len(cands)} candidates, {scoring})"
+            f": bit-exact in forms {forms}")
+
+
+def _phase_wide_forms(cases, card: str) -> None:
+    """Where the large-call and small-call forms of sw_banded's classes
+    of 256 to 1024 lanes cross: the rescue set's candidates with window
+    and corridor cut to 200, 450, 683 and 1000 lanes, at call sizes from
+    one candidate to 8,192, each form held to the other and, on the
+    whole call, to the plain version."""
+    from ema_tpu_torch.ops.sw import gather_score_ref
+
+    r = cases["rescue"]
+    for width in (200, 450, 683, 1000):
+        full = dict(r, win_len=torch.full_like(r["win_len"], width),
+                    wl=torch.full_like(r["wl"], width))
+        want = _call(gather_score_ref, full, "banded")
+        row = []
+        for n in (1, 2, 8, 33, 132, 264, 528, WARP_CALL_132,
+                  WARP_CALL_132 + 1, 2112, 8192):
+            c = dict(full, owners=full["owners"][:n],
+                     win_lo=full["win_lo"][:n], win_len=full["win_len"][:n],
+                     wl=full["wl"][:n])
+            times = []
+            for group in (8, 32):
+                check(torch.equal(_form_out(c, "banded", group), want[:n]),
+                      f"sw_banded [wl = {width}, N={n}, form {group}] "
+                      f"differs from the plain version")
+                times.append(_kernel_ms(c, "banded", 10, group))
+            row.append(f"N={n} {times[0]} / {times[1]} ms")
+        log(f"sw_banded [rescue set, wl = {width}] the launch alone in the "
+            f"large-call / small-call form: " + ", ".join(row)
+            + f"; card: {card}")
 
 
 # ----------------------------------------------------------------------
@@ -720,8 +898,16 @@ def phase_golden(dev) -> None:
 def _recording(aligner, captured):
     """Wrap aligner._score_windows to keep the inputs and output of its
     first chained call and of its first rescue call (the corridor is the
-    whole window there): one real chunk of the main path each."""
+    whole window there): one real chunk of the main path each.  Under
+    the banded scorer ``captured["launches"]`` counts sw_banded's
+    launches by kind of call, from the class plan of each call that
+    scores (a call past SW_CHUNK only splits itself)."""
+    from ema_tpu_torch.core.pipeline import SW_CHUNK
+    from ema_tpu_torch.ops.sw import plan_class_launches
+
     score_windows = aligner._score_windows
+    lock = threading.Lock()
+    split = captured.setdefault("launches", {"chained": 0, "rescue": 0})
 
     def recording(oriented_dev, olens_dev, owners, win_lo, win_len,
                   wl=None, **kw):
@@ -733,6 +919,12 @@ def _recording(aligner, captured):
         captured.setdefault(kind, dict(
             oriented_dev=oriented_dev, olens_dev=olens_dev, owners=owners,
             win_lo=win_lo, win_len=win_len, wl=wl, out=out))
+        if aligner.sw_impl == "banded" and 0 < len(owners) <= SW_CHUNK:
+            w = torch.from_numpy(np.maximum(
+                wl if wl is not None else win_len, 1).astype(np.int32))
+            _, spans = plan_class_launches(w, int(w.min()), int(w.max()))
+            with lock:
+                split[kind] += len(spans)
         return out
     return recording
 
@@ -781,6 +973,9 @@ def _main_run(dev, card, idx, pairs, truth, sw_impl, metrics=False,
 
     best = min(passes)
     peak = torch.cuda.max_memory_allocated(dev)
+    if sw_impl == "banded":
+        log(f"main path [{label}]: sw_banded launches of the warm-up pass "
+            f"by kind of call: {captured['launches']}")
     log(f"main path [{label}]: device_em={aligner.cfg.device_em}, "
         f"seed_impl={aligner.seed_impl}, warm-up pass {warm} s, timed "
         f"passes {passes} s, {n_pairs / best} pairs/s (best pass), "
@@ -870,8 +1065,8 @@ def phase_recorded(dev, card: str, idx, recorded) -> None:
     calls, the shapes the pipeline really sends: cells, ms, Gcell/s and
     the share of the bound; the banded kernels must reproduce the
     recorded output."""
-    from ema_tpu_torch.ops.sw import (LAUNCHES, PACKED_MAX_WL, gather_score,
-                                      reset_counts)
+    from ema_tpu_torch.ops.sw import (FORM_GROUPS, LAUNCHES, PACKED_MAX_WL,
+                                      gather_score, reset_counts)
     rate = instr_rates(dev)
     text = torch.from_numpy(idx.text).to(dev)
     for kind in ("chained", "rescue"):
@@ -909,12 +1104,21 @@ def phase_recorded(dev, card: str, idx, recorded) -> None:
             bound, by, cells = _bound(name, c, scorer, rate)
             ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
             launch_ms = _kernel_ms(c, scorer, 20)
+            forms = []
+            for group in FORM_GROUPS.get(scorer, ()):
+                if scorer != "scan":
+                    check(np.array_equal(_form_out(c, scorer, group).cpu()
+                                         .numpy(), want[keep]),
+                          f"{name} in {_form_label(scorer, group)} differs "
+                          f"from the recorded {kind} output")
+                forms.append(f"{_form_label(scorer, group)} "
+                             f"{_kernel_ms(c, scorer, 20, group)} ms")
             log(f"{name} [recorded {kind}] N={keep.shape[0]}: wrapper call "
                 f"{ms} ms in {per_call} launches, the launches alone "
-                f"{launch_ms} ms ({cells / launch_ms / 1e6} Gcell/s), "
-                f"cells={cells}, bound {bound} ms by {by} = "
-                f"{bound / launch_ms} of the launches' time, {bound / ms} "
-                f"of the call's, card: {card}")
+                f"{launch_ms} ms ({cells / launch_ms / 1e6} Gcell/s; "
+                + ", ".join(forms) + f"), cells={cells}, bound {bound} ms "
+                f"by {by} = {bound / launch_ms} of the launches' time, "
+                f"{bound / ms} of the call's, card: {card}")
     _phase_class_rules(dev, card, text, recorded["chained"], rate)
 
 
@@ -925,8 +1129,8 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
     50..60 (one class, never sorted), in 50..70 (two classes; the default
     plan against a forced sort and a forced single launch) and with a 6%
     tail to 250 (the same three).  Then a wl = 50 call on both sides of
-    the size from which a narrow class takes part-warp segments (and
-    sw_banded16's and sw_banded_packed's thread forms on it).  Every
+    the size from which a class takes its large-call form, with each form
+    of sw_banded, sw_banded16 and sw_banded_packed timed on it.  Every
     variant is held bit-exact against the plain version."""
     from ema_tpu_torch.ops import sw
     from ema_tpu_torch.ops.sw import gather_score, gather_score_ref
@@ -974,8 +1178,8 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
     for name, scorer in (("sw_banded", "banded"),
                          ("sw_banded16", "banded16"),
                          ("sw_banded_packed", "packed")):
-        for n in (512, 1024, WARP_CALL_132, WARP_CALL_132 + 1, 1536, 2048,
-                  4096, LARGE_CLASS - 1, LARGE_CLASS, 8192):
+        for n in (132, 264, 512, 1024, WARP_CALL_132, WARP_CALL_132 + 1,
+                  1536, 12 * 132, 12 * 132 + 1, 2048, 4096, 8192):
             keep = np.arange(min(n, N))
             c = call_with(np.full(keep.shape[0], 50), keep)
             check(torch.equal(_call(gather_score, c, scorer),
@@ -985,7 +1189,7 @@ def _phase_class_rules(dev, card: str, text, r, rate) -> None:
             ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
             row = [f"wrapper call {ms} ms",
                    f"the launch alone {_kernel_ms(c, scorer, 20)} ms"]
-            row += [f"on {group} threads "
+            row += [f"in {_form_label(scorer, group)} "
                     f"{_kernel_ms(c, scorer, 20, group)} ms"
                     for group in sw.FORM_GROUPS.get(scorer, ())]
             log(f"{name} [wl = 50] N={keep.shape[0]}: " + ", ".join(row)
@@ -1058,10 +1262,6 @@ def phase_device_em(dev, card: str, idx, pairs, truth,
     return out
 
 
-SW_KERNEL_NAMES = ("rowsweep_kernel", "sw_banded16_kernel",
-                   "sw_batch_kernel")
-
-
 def _merge(iv) -> list:
     out = []
     for a, b in sorted(iv):
@@ -1097,6 +1297,7 @@ def phase_profile(dev, card: str, idx, pairs) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     from ema_tpu_torch import config
+    from ema_tpu_torch.ops.sw import KERNEL_SYMBOL
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.core.pipeline import Aligner
 
@@ -1136,7 +1337,7 @@ def phase_profile(dev, card: str, idx, pairs) -> float:
     for e in events:
         st = e.get("args", {}).get("stream")
         streams.setdefault(st, []).append((e["ts"], e["ts"] + e["dur"]))
-        if any(k in e["name"] for k in SW_KERNEL_NAMES):
+        if any(k in e["name"] for k in KERNEL_SYMBOL.values()):
             sw_streams.add(st)
     merged = {st: _merge(iv) for st, iv in streams.items()}
     busy = _span(_merge([x for iv in streams.values() for x in iv])) / 1e6
@@ -2199,6 +2400,28 @@ def phase_multihost(dev, card: str, idx, genome, pairs, bc_strs,
           "the two-process align -x records differ from phase_x's")
 
 
+def ptxas_functions(text: str) -> list:
+    """(kernel, registers, spill-store bytes) of each entry function that
+    ``ptxas -v`` reports, the kernel named by its template arguments
+    where it has them."""
+    out, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            t = re.search(r"([a-z][a-z0-9_]*_kernel)I(\w+?)E+v",
+                          m.group(1))
+            fn = [f"{t.group(1)}<{t.group(2)}>" if t else m.group(1), 0, 0]
+            out.append(fn)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn:
+            fn[2] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            fn[1] = int(m.group(1))
+    return [tuple(f) for f in out]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; "
@@ -2222,12 +2445,14 @@ def main() -> int:
     _build.load_all()
     log(f"kernels {', '.join(KERNELS)} built/loaded in {time.time() - t0} s")
     for name in KERNELS:
-        ptxas = _build.ptxas_log(name)
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = [int(w) for w in re.findall(r"(\d+) bytes spill stores",
-                                              ptxas)]
-        log(f"ptxas {name}: {len(regs)} kernels, registers {regs}, spill "
-            f"stores {sum(spills)} bytes")
+        fns = ptxas_functions(_build.ptxas_log(name))
+        log(f"ptxas {name}: {len(fns)} kernels, registers "
+            f"{[f[1] for f in fns]}, spill stores "
+            f"{sum(f[2] for f in fns)} bytes")
+        if name == "sw_banded":
+            for fn, regs, spill in fns:
+                log(f"ptxas {name} {fn}: {regs} registers, {spill} bytes "
+                    f"spill stores")
 
     t_start = time.time()
 

@@ -10,9 +10,9 @@ source.  A failed build raises; there is no fallback.
 
 Each library exports ``<name>_launch`` with the argument types that
 ``KERNELS`` gives it (the SW signature, the one with a permutation of
-sw_banded and sw_banded16, or the ALU probe's; sw_batch, sw_banded16 and
-sw_banded_packed take a thread form after max_wl, 0 for the launch's own
-choice) and, for the banded kernels, ``<name>_max_wl``.
+sw_banded and sw_banded16, or the ALU probe's; every SW kernel takes a
+thread form after max_wl, 0 for the launch's own choice) and, for the
+banded kernels, ``<name>_max_wl``.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ SW_BANDED_ARGTYPES = SW_ARGTYPES[:9] + [_p, _i64] + SW_ARGTYPES[9:]
 
 
 def _with_group(argtypes):
-    """sw_batch, sw_banded16, sw_banded_packed: (..., max_wl, group,
-    match, ...)."""
+    """Every SW kernel: (..., max_wl, group, match, ...)."""
     at = argtypes.index(_i32) + 1
     return argtypes[:at] + [_i32] + argtypes[at:]
 
@@ -50,7 +49,7 @@ def _with_group(argtypes):
 # (x, out, n, K, unroll, form, stream)
 PROBE_ARGTYPES = [_p, _p, _i64, _i32, _i32, _i32, _p]
 # kernel -> the argument types of its <name>_launch
-KERNELS = {"sw_banded": SW_BANDED_ARGTYPES,
+KERNELS = {"sw_banded": _with_group(SW_BANDED_ARGTYPES),
            "sw_banded16": _with_group(SW_BANDED_ARGTYPES),
            "sw_banded_packed": _with_group(SW_ARGTYPES),
            "sw_batch": _with_group(SW_ARGTYPES),

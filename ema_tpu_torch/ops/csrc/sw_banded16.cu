@@ -4,7 +4,7 @@
 // library.
 //
 // Replaces the TPU kernel ema_tpu/ops/sw_pallas.py:_banded_kernel16 (behind
-// sw_score_banded_pallas16): the recurrences of sw_rowsweep.cuh with every
+// sw_score_banded_pallas16): the recurrences of sw_banded.cu with every
 // per-lane value (H, F, starts, bests) held as int16, the sentinel
 // NEG16 = -16384, and a no-alignment score (<= NEG16 / 2) reported as the
 // int32 NEG (sw_pallas.py:643-645).  Its plain PyTorch twin is

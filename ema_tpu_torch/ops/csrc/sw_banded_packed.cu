@@ -20,8 +20,9 @@
 // vertical hand-off, the horizontal-gap scan and the best-cell reduction
 // stop at its edge.  The segments of a warp run the longest of their row
 // counts; rows past a segment's own read or window hold no valid cell.
-// The recurrences and tie rules are those of sw_rowsweep.cuh, which serves
-// sw_banded alone: the scan prefers the nearer source, merges go diag >=
+// The recurrences and tie rules are those of sw_banded.cu, whose one-pass
+// body is this one generalised to any lanes a thread and to several warps
+// a candidate: the scan prefers the nearer source, merges go diag >=
 // horizontal >= vertical, each lane keeps its first strict improvement,
 // and the pick is max score, then min 2i + k, then min i.
 //
@@ -29,7 +30,7 @@
 // twenty dependent-free int32 instructions a cell that no layout removes
 // (tools/bench_sw.py: MIN_INSTR_PER_CELL), plus what a row costs a thread
 // whatever its lanes: the shuffles of the vertical hand-off and of the
-// carry scan.  The shared row sweep (sw_rowsweep.cuh, 101.9 SASS
+// carry scan.  The former shared two-pass row sweep (101.9 SASS
 // instructions a cell at 8 x 8) paid per cell for a bounds-checked byte
 // load of the window, the substitution score twice, a second pass that
 // recomputed the first, a branch on k < wl and on validity, and a

@@ -14,15 +14,16 @@ ema_tpu/core/pipeline.py:_gather_score fused in:
   scan      csrc/sw_batch.cu          _kernel                 whole window
 
 On CUDA tensors the scorer's kernel launches (``banded`` and ``banded16``
-once per corridor-width class of the call, see ``plan_class_launches``;
+once per corridor-width class of the call, see ``plan_class_launches``,
+each class in the thread form its width and the call's size call for;
 ``scan`` with the threads a candidate that the call's longest read and
 its size call for; ``packed`` once, 16 threads x 4 lanes or, for a call
 of more than 8 candidates an SM, 8 x 8); on CPU tensors its plain
 version runs.  A CUDA tensor never runs the plain version, and a failed
-build or launch raises.  ``sw_banded`` runs the shared row sweep of
-csrc/sw_rowsweep.cuh; ``sw_banded16``, ``sw_banded_packed`` and
-``sw_batch`` are one-pass kernels of their own that look the
-substitution score up as a signed byte.
+build or launch raises.  All four are one-pass kernels of their own that
+look the substitution score up as a signed byte; ``sw_banded`` alone
+also takes any other int32 scoring (in the mask form of its lookups), as
+the JAX banded scorer does.
 
 The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
 is ema_tpu/ops/sw.py:sw_score_banded, ``sw_score_banded16_ref`` the same
@@ -73,15 +74,26 @@ class LaunchCounter:
 # scorer -> the CUDA kernel (and csrc/<kernel>.cu) that serves it
 KERNEL_OF = {"banded": "sw_banded", "banded16": "sw_banded16",
              "packed": "sw_banded_packed", "scan": "sw_batch"}
+# kernel -> its __global__ function, the name by which SASS listings
+# (tools/bench_sw.py, tools/ab_smoke.py) and profiler traces
+# (chip_smoke.py) find it
+KERNEL_SYMBOL = {"sw_banded": "sw_banded_kernel",
+                 "sw_banded16": "sw_banded16_kernel",
+                 "sw_banded_packed": "sw_banded_packed_kernel",
+                 "sw_batch": "sw_batch_kernel"}
 # launches of each kernel by gather_score (CUDA tensors only)
 LAUNCHES = {k: LaunchCounter() for k in KERNEL_OF.values()}
 # gather_score calls per scorer, on any device
 CALLS = {s: LaunchCounter() for s in KERNEL_OF}
 
 
-# the thread forms (threads a candidate) that ``_plan_kernel``'s ``group``
-# may ask of a scorer's kernel; 0 leaves the choice to the launch
-FORM_GROUPS = {"scan": (8, 32), "banded16": (8, 32), "packed": (8, 16)}
+# the thread forms that ``_plan_kernel``'s ``group`` may ask of a scorer's
+# kernel; 0 leaves the choice to the launch.  scan and packed: threads a
+# candidate; banded and banded16: 8 takes each class's large-call form and
+# 32 its small-call form (the tables in csrc/sw_banded.cu and
+# csrc/sw_banded16.cu)
+FORM_GROUPS = {"scan": (8, 32), "banded": (8, 32), "banded16": (8, 32),
+               "packed": (8, 16)}
 
 
 def reset_counts() -> None:
@@ -430,7 +442,8 @@ def _check(name, t, dtype, ndim, dev):
 
 # Upper corridor widths of the width classes of sw_banded and sw_banded16
 # (the tables in csrc/sw_banded.cu and csrc/sw_banded16.cu, which also
-# pick each class's threads per candidate from its size).  The usual chained corridor is 2 x 24 + 2 lanes plus the
+# pick each class's thread form from the call's size).  The usual chained
+# corridor is 2 x 24 + 2 lanes plus the
 # chain's diagonal spread, 50 to about 60 with small indels: one class
 # holds 33..64, so such a call stays one class.  96 splits the 65..128
 # range, whose narrow half runs faster on 16 threads x 6 lanes than on a
@@ -536,8 +549,7 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     (int32 [N, 4]) on the current stream, adds them to ``LAUNCHES`` and may
     be called again.  ``gather_score`` is ``_plan_kernel`` then
     ``launch()``.  chip_smoke.py times ``launch`` alone, without the plan's
-    readback, and passes ``group`` (one of ``FORM_GROUPS[scorer]``: 8 or
-    32 threads a candidate for scan and banded16, 8 or 16 for packed) to
+    readback, and passes ``group`` (one of ``FORM_GROUPS[scorer]``) to
     time one thread form against the other; 0 leaves the choice to the
     launch, and nothing else passes another value."""
     from ema_tpu_torch.ops import _build
@@ -589,8 +601,7 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
         # permutation (the kernel writes out[perm[slot]])
         perm, spans = plan_class_launches(wl, w_lo, w_hi)
         perm_ptr = None if perm is None else perm.data_ptr()
-        form = (group,) if scorer == "banded16" else ()
-        launches = [(perm_ptr, off, n, edge, *form)
+        launches = [(perm_ptr, off, n, edge, group)
                     for edge, off, n in spans]
     elif scorer == "scan":
         launches = [(N, max_rl, group)]

@@ -1,10 +1,12 @@
 """Two checkouts of this repository in turns on one card: the SW kernels'
-times on the synthetic chained and rescue sets (chip_smoke.sw_cases), the
-bench world's pairs/s under the default scorer (chip_smoke._main_run) and
-the times of sw_banded, sw_banded16, sw_banded_packed (on the corridors of
-at most 64 lanes) and sw_batch on the chained call that run recorded, A, B,
-B, A; where a checkout's sw_banded_packed takes a thread form
-(ops/sw.FORM_GROUPS), each form is timed too.  Every kernel time is given
+times on the synthetic chained and rescue sets (chip_smoke.sw_cases; the
+banded scorer also on the mixed set), the bench world's pairs/s under the
+default scorer (chip_smoke._main_run) and the times of sw_banded,
+sw_banded16, sw_banded_packed (on the corridors of at most 64 lanes) and
+sw_batch on the chained call that run recorded, and of sw_banded on its
+recorded rescue call, A, B, B, A; where a checkout's sw_banded or
+sw_banded_packed takes a thread form (ops/sw.FORM_GROUPS), each form is
+timed too.  Every kernel time is given
 twice: the wrapper's call (CUDA events around gather_score, which also pays
 its checks and the readback of the bounds) and the SW kernels alone
 (torch.profiler).
@@ -51,10 +53,15 @@ from ema_tpu_torch.ops import sw
 from ema_tpu_torch.ops.sw import gather_score
 from torch.profiler import ProfilerActivity, profile
 SCORERS = ("banded", "banded16", "packed", "scan")
-SW_KERNELS = ("rowsweep_kernel", "sw_banded16_kernel",
-              "sw_banded_packed_kernel", "sw_batch_kernel")
-# the packed kernel's thread forms, where this checkout's launch takes one
-PACKED_FORMS = getattr(sw, "FORM_GROUPS", {}).get("packed", ())
+# the SW kernels' __global__ functions (a checkout from before
+# ops/sw.KERNEL_SYMBOL ran sw_banded as rowsweep_kernel)
+SW_KERNELS = tuple(getattr(sw, "KERNEL_SYMBOL", {}).values()) or (
+    "rowsweep_kernel", "sw_banded16_kernel", "sw_banded_packed_kernel",
+    "sw_batch_kernel")
+# the thread forms of sw_banded and the packed kernel, where this
+# checkout's launch takes one
+FORMS = {s: getattr(sw, "FORM_GROUPS", {}).get(s, ())
+         for s in ("banded", "packed")}
 
 
 def timed(fn, reps):
@@ -79,7 +86,7 @@ if "kernel" in want:
     # tier on its wl <= 64 half), 20 and 10 launches after a warm-up
     cases = cs.sw_cases(dev)
     res["kernel"] = {}
-    for scorer, names in (("banded", ("chained", "rescue")),
+    for scorer, names in (("banded", ("chained", "rescue", "mixed")),
                           ("banded16", ("chained", "rescue")),
                           ("packed", ("chained_w64",)),
                           ("scan", ("chained", "rescue"))):
@@ -88,10 +95,12 @@ if "kernel" in want:
             reps = 20 if cname.startswith("chained") else 10
             res["kernel"][f"{scorer} {cname}"] = timed(
                 lambda: cs._call(gather_score, c, scorer), reps)
-    c = cases["chained_w64"]
-    for group in PACKED_FORMS:
-        res["kernel"][f"packed chained_w64 {group} threads"] = timed(
-            cs._planned(c, "packed", group)[1], 20)
+    for scorer, cname in (("packed", "chained_w64"), ("banded", "chained"),
+                          ("banded", "rescue")):
+        c = cases[cname]
+        for group in FORMS[scorer]:
+            res["kernel"][f"{scorer} {cname} form {group}"] = timed(
+                cs._planned(c, scorer, group)[1], 20)
     del cases
 if "main" in want:
     genome, pairs, truth, _ = cs.bench_world()
@@ -118,13 +127,26 @@ if "main" in want:
     ms = {s: timed(lambda: gather_score(*(small if s == "packed" else args),
                                         scorer=s, **cs.SW_KW), 20)
           for s in SCORERS}
-    pc = dict(zip(("text", "oriented", "olens", "owners", "win_lo",
-                   "win_len", "wl"), small))
-    for group in PACKED_FORMS:
-        ms[f"packed {group} threads"] = timed(
-            cs._planned(pc, "packed", group)[1], 20)
+    names = ("text", "oriented", "olens", "owners", "win_lo", "win_len",
+             "wl")
+    for scorer, a in (("packed", small), ("banded", args)):
+        for group in FORMS[scorer]:
+            ms[f"{scorer} form {group}"] = timed(
+                cs._planned(dict(zip(names, a)), scorer, group)[1], 20)
+    # sw_banded on the recorded rescue call (one or two candidates)
+    r = rec["rescue"]
+    rescue = (torch.from_numpy(idx.text).to(dev), r["oriented_dev"],
+              r["olens_dev"], put(r["owners"], np.int32),
+              put(r["win_lo"], np.int64), put(r["win_len"], np.int32),
+              put(np.maximum(r["win_len"], 1), np.int32))
+    ms["banded rescue"] = timed(
+        lambda: gather_score(*rescue, scorer="banded", **cs.SW_KW), 20)
+    for group in FORMS["banded"]:
+        ms[f"banded rescue form {group}"] = timed(
+            cs._planned(dict(zip(names, rescue)), "banded", group)[1], 20)
     rl = c["olens_dev"].cpu().numpy()[c["owners"]].astype(np.int64)
     res["recorded"] = {"ms": ms, "N": int(len(c["owners"])),
+                       "N_rescue": int(len(r["owners"])),
                        "N_packed": int((wl <= sw.PACKED_MAX_WL).sum()),
                        "cells": int((rl * wl).sum()),
                        "max_wl": int(c["wl"].max())}
@@ -143,25 +165,26 @@ def run_turn(path: str, want: str) -> dict:
     return json.loads(line[-1][len("AB_RESULT "):])
 
 
+# __global__ functions that an older checkout's SW kernels had (its
+# sw_banded ran the shared two-pass row sweep of sw_rowsweep.cuh)
+LEGACY_SYMBOLS = (("sw_banded", "rowsweep_kernel"),)
+
+
 def print_sass(sides: dict) -> None:
     """The main-loop SASS instruction counts of both checkouts' sw_batch,
-    sw_banded16, sw_banded_packed (a row sweep of its own, or an
-    instantiation of the shared one) and sw_banded, built here with this
+    sw_banded16, sw_banded_packed and sw_banded, built here with this
     checkout's flags."""
     import os
     import tempfile
 
     from ema_tpu_torch.ops import _build
+    from ema_tpu_torch.ops.sw import KERNEL_SYMBOL
     from ema_tpu_torch.tools import bench_sw
 
     with tempfile.TemporaryDirectory() as tmp:
         for side, path in sides.items():
-            for kernel, lanes, stem in (
-                    ("sw_batch", 1, "sw_batch_kernel"),
-                    ("sw_banded16", 2, "sw_banded16_kernel"),
-                    ("sw_banded_packed", 1, "sw_banded_packed_kernel"),
-                    ("sw_banded_packed", 1, "rowsweep_kernel"),
-                    ("sw_banded", 1, "rowsweep_kernel")):
+            for kernel, stem in (*KERNEL_SYMBOL.items(), *LEGACY_SYMBOLS):
+                lanes = 2 if kernel == "sw_banded16" else 1
                 so = os.path.join(tmp, f"{side}_{kernel}.so")
                 src = os.path.join(path, "ema_tpu_torch", "ops", "csrc",
                                    f"{kernel}.cu")

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from ema_tpu_torch.ops import _build, probe
-from ema_tpu_torch.ops.sw import (gather_score, sw_score_banded_ref,
-                                  sw_score_batch_ref)
+from ema_tpu_torch.ops.sw import (KERNEL_SYMBOL, gather_score,
+                                  sw_score_banded_ref, sw_score_batch_ref)
 
 SHAPE = (16384, 100, 192, 128)      # B, m, n, W (tools/bench_sw.py:33)
 CPU_B = 64
@@ -59,24 +59,25 @@ OUTS = ("score", "qb", "qe", "ref_end")
 # to banded-packed-ref instead: its contract is the wl-masked corridor)
 EXACT = ("banded-pallas", "banded16", "pallas", "banded-scan", "scan")
 
-# Static int32 op count per banded DP cell of sw_rowsweep.cuh's row sweep
-# at W = 128 (4 lanes per thread), by the JAX tool's rule (one unit per
-# elementwise op, select, compare or shuffle; a max is one op,
-# ``c ? a : b`` on a fresh compare two):
-#   pass 1, per lane: k and the k < wl guard 2, the window base (text_at)
-#     6, vertical open/extend 2, F 1, its start 2, max(H, fresh) 1, sub
-#     6, Hd 1, Sd 2, valid 3, H0 1, S0 2, the scan value 3, the thread
-#     aggregate 3 = 35;
-#   pass 2, per lane: guard 2, Hd/Sd again 10, valid 3, H0/S0 3, E 3,
-#     max(E, F) 1, H 1, SH 4, the scan value 2, the running prefix 3,
-#     H/F stores 2, the best-cell offer 18 = 52;
-#   per thread and row, over its 4 lanes: the loop 3, 4 shuffles down 4,
-#     the segment edge 5, the read base 3, fresh and end_adj 4, col0 2,
-#     the 5-step carry scan 35, the exclusive shift 5 = 62, so 15.5 a cell.
-# 35 + 52 + 15.5 = 102.5, counted as 102.
-BANDED_OPS_PER_CELL = 102
+# Static int32 op count per banded DP cell of csrc/sw_banded.cu's one-pass
+# row sweep at W = 128 (the large call's form there: 16 threads x 8
+# lanes), by the JAX tool's rule (one unit per elementwise op, select,
+# compare or shuffle; a max is one op, ``c ? a : b`` on a fresh compare
+# two):
+#   part 1, per lane: the score (a prmt, and a quarter of the quad's) 1.25,
+#     vertical open/extend 2, F 1, its start 2, max(H, fresh) 1, Hd 1,
+#     Sd 2, H0 1, S0 2, the scan value 1, the thread aggregate 3 = 17.25;
+#   part 2, per lane: E 2, max(E, F) 1, H 1, SH 4, the scan value 1, the
+#     running prefix 3, H/F masked 2, the end-of-read add 1, the lane's
+#     best 4 = 19;
+#   per thread and row, over its 8 lanes: the loop and the staged loads
+#     6, 7 shuffles 7, the segment edge 6, the score word 4, the selector
+#     shifts 2, fresh, end and the tail-row test 5, the 4-step carry scan
+#     28, the exclusive shift 5 = 63, so 7.9 a cell.
+# 17.25 + 19 + 7.9 = 44.1, counted as 44 (the former two-pass sweep: 102).
+BANDED_OPS_PER_CELL = 44
 # The fewest integer instructions a cell of that recurrence admits on
-# sm_90 (sw_rowsweep.cuh:9-13 with the start rows its outputs need), with
+# sm_90 (csrc/sw_banded.cu:16-20 with the start rows its outputs need), with
 # the DPX instructions, counted by hand for a sequential sweep with no
 # second pass: what bounds any kernel of this function, not what this one
 # emits.  The fusion that counts here is the min/max with a predicate
@@ -146,18 +147,27 @@ S16X2_FORMS = ("base", "vcmpges2", "vcmpgts2", "vadd2", "vsub2", "vmaxs2",
 # The inner loop of each SW kernel at the thread form the recorded chained
 # call (100 bp reads, corridors of 50) takes, and the cells one pass of the
 # loop covers per thread: (library, mangled-name part, cells).
+def _fn(kernel: str, args: str) -> str:
+    """The mangled-name part of one instantiation of a kernel's
+    __global__ function (ops/sw.KERNEL_SYMBOL)."""
+    return f"{KERNEL_SYMBOL[kernel]}I{args}E"
+
+
 CELL_LOOPS = {
-    "sw_batch 8x13": ("sw_batch", "sw_batch_kernelILi13ELi8EE", 13),
-    "sw_batch 32x4": ("sw_batch", "sw_batch_kernelILi4ELi32EE", 4),
-    "sw_banded16 8x8": ("sw_banded16", "sw_banded16_kernelILi4ELi8ELi1EE", 8),
-    "sw_banded16 32x2": ("sw_banded16", "sw_banded16_kernelILi1ELi32ELi1EE",
-                         2),
-    "sw_banded 8x8": ("sw_banded", "rowsweep_kernelILi8ELi8ELi1EE", 8),
-    "sw_banded 32x2": ("sw_banded", "rowsweep_kernelILi2ELi32ELi1EE", 2),
+    "sw_batch 8x13": ("sw_batch", _fn("sw_batch", "Li13ELi8E"), 13),
+    "sw_batch 32x4": ("sw_batch", _fn("sw_batch", "Li4ELi32E"), 4),
+    "sw_banded16 8x8": ("sw_banded16", _fn("sw_banded16", "Li4ELi8ELi1E"),
+                        8),
+    "sw_banded16 32x2": ("sw_banded16",
+                         _fn("sw_banded16", "Li1ELi32ELi1E"), 2),
+    # the large call's form and the small call's (csrc/sw_banded.cu)
+    "sw_banded 8x8": ("sw_banded", _fn("sw_banded", "Li8ELi8ELi1ELb1E"), 8),
+    "sw_banded 32x2": ("sw_banded", _fn("sw_banded", "Li2ELi32ELi1ELb1E"),
+                       2),
     "sw_banded_packed 8x8": ("sw_banded_packed",
-                             "sw_banded_packed_kernelILi8ELi8EE", 8),
+                             _fn("sw_banded_packed", "Li8ELi8E"), 8),
     "sw_banded_packed 16x4": ("sw_banded_packed",
-                              "sw_banded_packed_kernelILi4ELi16EE", 4),
+                              _fn("sw_banded_packed", "Li4ELi16E"), 4),
 }
 
 
@@ -486,8 +496,8 @@ def step_probe(device) -> dict:
         res[f"{form}_sass_int_instr_per_step"] = per_step
         res[f"{form}_int32_instr_tera_per_s"] = (
             res[f"{form}_int32_tops"] * per_step / 3)
-    res["sw_banded_sass_w128"] = sass_opcodes(
-        "sw_banded", "rowsweep_kernelILi4ELi32ELi1E")
+    res["sw_banded_sass_w128"] = sass_opcodes(     # the 16 x 8 lane form
+        "sw_banded", _fn("sw_banded", "Li8ELi16ELi1ELb1"))
     res["s16x2_forms"] = s16x2_forms()
     res["cell_loops"] = cell_loops()
     log(f"vpu-probe s16x2: {res['s16x2_ms']} ms, "

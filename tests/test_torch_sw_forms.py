@@ -41,50 +41,16 @@ from ema_tpu_torch.ops.sw import (NEG, NEG16, gather_score,
                                   gather_score_by_class_ref,
                                   gather_score_ref, sw_score_banded16_ref,
                                   sw_score_batch_ref)
-from test_torch_sw_classes import (T, WIDTH_SETS, _better, _inputs,
-                                   _shfl_down, _shfl_up, _shfl_xor, _t,
-                                   _warp_candidates)
+from chip_smoke import TIE_SETS
+from chip_smoke import cand_inputs as _packed_inputs
+from chip_smoke import tie_batch as _tie_batch
+from test_torch_sw_classes import (T, U32, WIDTH_SETS, _better, _funnel_r,
+                                   _i32, _inputs, _sext_byte, _shfl_down,
+                                   _shfl_idx, _shfl_up, _shfl_xor, _t,
+                                   _warp_candidates, prmt, score_word)
 
 SW = dict(match=1, mismatch=4, gap_open=6, gap_extend=1, clip=5)
 KEYS = ("score", "qb", "qe", "ref_end")
-U32 = np.uint32
-
-
-def _shfl_idx(x, src, width):
-    """__shfl_sync(x, src, width): lane ``src`` of the caller's group."""
-    t = np.arange(T)
-    return x[(t // width) * width + (src % width)]
-
-
-def prmt(x, y, s):
-    """prmt.b32 (generic form) on uint32 arrays: nibble n of ``s`` picks the source
-    byte of output byte n from (x bytes 0-3, y bytes 4-7); its bit 3
-    spreads the byte's sign instead."""
-    x, y, s = np.broadcast_arrays(*(np.asarray(a, np.uint64)
-                                    for a in (x, y, s)))
-    src = x | (y << np.uint64(32))
-    out = np.zeros(x.shape, np.uint64)
-    for n in range(4):
-        nib = (s >> np.uint64(4 * n)) & np.uint64(0xf)
-        byte = (src >> ((nib & np.uint64(7)) * np.uint64(8))) & np.uint64(255)
-        sign = np.where(byte & np.uint64(0x80), 255, 0).astype(np.uint64)
-        out |= np.where(nib & np.uint64(8), sign, byte) << np.uint64(8 * n)
-    return out.astype(U32)
-
-
-def _i32(x):
-    """uint32 bits as signed 32-bit values (in int64)."""
-    return np.asarray(x, U32).astype(np.int32).astype(np.int64)
-
-
-def score_word(fc, match, mismatch):
-    """The four score bytes of a base, one per partner base 0..3; all -1
-    for an N (code >= 4)."""
-    all_mm = (0x01010101 * ((-mismatch) & 0xff)) & 0xffffffff
-    delta = ((-mismatch) ^ match) & 0xff
-    fc = np.asarray(fc, np.int64)
-    word = all_mm ^ (delta << (8 * np.minimum(fc, 3)))
-    return np.where(fc >= 4, 0xffffffff, word).astype(U32)
 
 
 def test_prmt_looks_up_signed_scores():
@@ -689,18 +655,6 @@ def test_banded16_class_launches_equal_the_jax_gather():
 # sw_banded_packed_kernel<LPT, SEGW>
 # ----------------------------------------------------------------------
 
-def _funnel_r(lo, hi, s):
-    """__funnelshift_r(lo, hi, s): the low word of (hi:lo) >> s."""
-    v = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(
-        lo, np.uint64)
-    return ((v >> np.uint64(s)) & np.uint64(0xffffffff)).astype(U32)
-
-
-def _sext_byte(b):
-    """The prmt selector that sign-spreads byte b over 32 bits."""
-    return b | ((8 | b) * 0x1110)
-
-
 def emulate_packed(LPT, SEGW, text, cands, match, mismatch, gap_open,
                    gap_extend, clip):
     """``cands``: up to 32 / SEGW tuples (read codes, win_lo, win_len, wl)
@@ -891,20 +845,6 @@ def _packed_candidates(rng, text, n_cands, m_max, m_min=None):
     return cands
 
 
-def _packed_inputs(text, cands):
-    """gather_score's inputs for ``cands`` (candidate b owns read b)."""
-    L = max(max(len(c[0]) for c in cands), 1)
-    oriented = np.full((len(cands), L), 4, np.uint8)
-    for b, c in enumerate(cands):
-        oriented[b, :len(c[0])] = c[0]
-    col = [np.array([c[i] for c in cands]) for i in (1, 2, 3)]
-    return dict(text=text, oriented=oriented,
-                olens=np.array([len(c[0]) for c in cands], np.int32),
-                owners=np.arange(len(cands), dtype=np.int32),
-                win_lo=col[0].astype(np.int64),
-                win_len=col[1].astype(np.int32), wl=col[2].astype(np.int32))
-
-
 PACKED_FORMS = [(4, 16), (8, 8)]
 
 
@@ -972,40 +912,6 @@ def test_packed_row_sweep_emulation_equals_pallas_packed():
             np.testing.assert_array_equal(got[:, col], np.asarray(want[k]),
                                           f"{SEGW}x{LPT} {k}")
     assert int(np.asarray(want["score"]).max()) >= 20
-
-
-# Two-letter reads and windows under scorings with many equal paths, each
-# set drawn as ``_tie_batch`` draws it: in the picked candidates the output
-# is decided by one tie rule, so that reversing it in the plain sweep (or
-# in the emulation) changes their (score, qb, qe, ref_end).  Set 1 (open 0,
-# extend 1, 4,096 drawn): the scan's nearer-source rule (391 ... 2451),
-# the merge's diag >= horizontal (9, 15, 16) and horizontal >= vertical
-# (54, 167), the vertical gap's open >= extend (499, 3310) and the
-# diagonal's H >= fresh (18, 21).  Set 2 (open 1, extend 0, 1,024 drawn):
-# the nearer-source rule between the threads' carries (182, 424, 789, 888).
-TIE_SETS = (
-    (dict(match=1, mismatch=1, gap_open=0, gap_extend=1, clip=0), 4096,
-     (391, 584, 951, 1538, 1715, 2308, 2451, 9, 15, 16, 54, 167, 499, 3310,
-      18, 21)),
-    (dict(match=1, mismatch=1, gap_open=1, gap_extend=0, clip=0), 1024,
-     (182, 424, 789, 888)),
-)
-
-
-def _tie_batch(B, picks):
-    """A seeded batch of B candidates: reads of 4..24 bases and windows of
-    4..92 over {0, 1}, corridors 1..64, windows laid end to end as the
-    text; returns the text and the picked candidates."""
-    rng = np.random.default_rng(0)
-    m, n = 24, 92
-    reads = rng.integers(0, 2, (B, m))
-    rl = rng.integers(4, m + 1, B)
-    wl = rng.integers(1, 65, B)
-    refs = rng.integers(0, 2, (B, n))
-    nl = rng.integers(4, n + 1, B)
-    text = refs.reshape(-1).astype(np.uint8)
-    return text, [(reads[b, :rl[b]], b * n, int(nl[b]), int(wl[b]))
-                  for b in picks]
 
 
 @pytest.mark.parametrize("LPT,SEGW", PACKED_FORMS,
