@@ -32,7 +32,11 @@ failure raises and the run exits non-zero:
      large-call and small-call forms bit-exact on every set, under a
      scoring past a signed byte (match 200, mismatch 150) and on the tie
      sets (TIE_SETS, WARP_TIE_SET), and both forms timed across call
-     sizes for corridors of 200 to 1000 lanes;
+     sizes for corridors of 200 to 1000 lanes; sw_batch in every form
+     bit-exact under that scoring (the mask form of its lookup) on all
+     its sets and on the tie sets at every score times 200, where it
+     must pick the byte form's cells, and its launches timed in the mask
+     and the byte form;
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -56,7 +60,9 @@ failure raises and the run exits non-zero:
      real chunk with the native host scorer, sw_banded's launches of a
      pass split by chained and rescue calls, banded16 and tier64 must
      give the default's SAM records, and scan re-scores one real chunk
-     with its plain version on the card; every SW kernel timed on the
+     with its plain version on the card; scan and banded under match
+     200 / mismatch 150 must give the same records; every SW kernel
+     timed on the
      default run's recorded chained and rescue calls (cells, ms, Gcell/s,
      share of the bound, each thread form apart; sw_banded's and
      sw_banded16's launch rules and the thread forms of sw_banded,
@@ -109,7 +115,15 @@ failure raises and the run exits non-zero:
      must give a one-process preproc's buckets byte for byte, and two
      ``align -x --coordinator`` processes sharing the card phase 10's
      records (MI masked);
- 14. checks: synchronise, and neither jax nor ema_tpu was imported.
+ 14. tools: the tool twins of ema_tpu_torch/tools/, each once on the
+     card: bench at full size on the bench world (BASELINE config 1),
+     ab_align (device and host EM, the SAM held equal), hostbound,
+     prof_pipeline, prof_smem; bench_configs config4, bench_config5 and
+     verify_drive as subprocesses through the port's CLI at reduced
+     sizes; measure_accuracy (3 Mbp, 20,000 pairs: >= 98% at truth, every
+     mapq bin populated), chain_recall on tests/test_chain_recall.py's
+     world (d0 and d_le3 recall >= 99.9%) and diagnose_mapq;
+ 15. checks: synchronise, and neither jax nor ema_tpu was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
 prints them, the one before it the per-kernel JSON record; the last line
@@ -276,17 +290,11 @@ def golden_sam(device, sw_impl=None, *, device_em=None, seed_impl=None,
 
 def bench_world():
     """The world of bench.py:132-145 (seed 2026, 3 Mbp, N_PAIRS 50,000
-    requested, 100 bp reads, err 0.003, ~60 pairs per barcode): returns
-    (genome, pairs, truth, barcode strings)."""
-    sim = simulate()
-    rng = np.random.default_rng(2026)
-    genome = sim.rand_genome(rng, 3_000_000)
-    genome_str = sim.to_str(genome)
-    n_bc = max(50_000 // 60, 1)
-    ids, bc_strs, bcs, s1, q1, s2, q2, truth = sim.simulate_pairs(
-        rng, genome_str, n_barcodes=n_bc, frags_per_bc=(2, 4),
-        pairs_per_frag=(15, 25), frag_len=30_000, read_len=100, err=0.003)
-    return genome, (ids, bcs, s1, q1, s2, q2), truth, bc_strs
+    requested, 100 bp reads, err 0.003, ~60 pairs per barcode), as
+    ema_tpu_torch/tools/bench.bench_world builds it: returns (genome,
+    pairs, truth, barcode strings)."""
+    from ema_tpu_torch.tools.bench import bench_world as world
+    return world()
 
 
 def truth_share(lines, ids, truth) -> tuple:
@@ -570,9 +578,14 @@ KERNEL_CASES = {
 # are held to the launch's own choice and timed against each other
 FORM_CASES = {"banded": ("chained", "rescue", "mixed"),
               "scan": ("chained", "rescue"), "packed": ("chained_w64",)}
-# a scoring past a signed byte, which sw_banded takes in the mask form of
-# its lookups (the JAX banded scorer takes any int32 scoring)
+# a scoring past a signed byte, which sw_banded and sw_batch take in the
+# mask form of their lookups (the JAX banded and scan scorers take any
+# int32 scoring)
 WIDE_SCORES = dict(SW_KW, match=200, mismatch=150)
+# the tie sets' scorings are scaled by this into sw_batch's mask form: on
+# their reads and windows, which hold no N, each value scales and every
+# tie falls as at the original scoring
+TIE_SCALE = 200
 # the pipeline shape each kernel is timed at, then the extra shapes
 TIMED = {"sw_banded": ("chained", "rescue", "mixed"),
          "sw_banded16": ("chained", "rescue"),
@@ -745,6 +758,8 @@ def phase_kernel(dev, card: str) -> dict:
         stats[name] = st
     _phase_forms(cases, card)
     _phase_banded_scorings(dev, cases, card)
+    stats["sw_batch"]["mask_launch_ms"] = _phase_scan_scorings(dev, cases,
+                                                               card)
     _phase_wide_forms(cases, card)
     # the packed tier's shape through the one-warp banded kernel
     c = cases["chained_w64"]
@@ -823,6 +838,57 @@ def _phase_banded_scorings(dev, cases, card: str) -> None:
                   f"sw_banded (form {group}) breaks a tie rule of set {k}")
         log(f"sw_banded on tie set {k} ({len(cands)} candidates, {scoring})"
             f": bit-exact in forms {forms}")
+
+
+def _phase_scan_scorings(dev, cases, card: str) -> float:
+    """sw_batch beyond the default scoring: in the mask form of its lookup
+    (WIDE_SCORES) on every one of its kernel sets in every thread form
+    (the launch's own choice and each of FORM_GROUPS), and on the tie
+    sets at every score times TIE_SCALE, where it must pick the byte
+    form's cells; each bit-exact against the plain version.  The launches
+    alone are timed in the mask and the byte form on the sets sw_batch is
+    timed at; returns the mask form's time on the first of them."""
+    from ema_tpu_torch.ops.sw import FORM_GROUPS, gather_score_ref
+
+    forms = (0, *FORM_GROUPS["scan"])
+    for cname, c in cases.items():
+        want = _call(gather_score_ref, c, "scan", WIDE_SCORES)
+        for group in forms:
+            check(torch.equal(_form_out(c, "scan", group, WIDE_SCORES),
+                              want),
+                  f"sw_batch (match {WIDE_SCORES['match']}, mismatch "
+                  f"{WIDE_SCORES['mismatch']}, form {group}) differs from "
+                  f"the plain version on {cname}")
+    log(f"sw_batch with match {WIDE_SCORES['match']}, mismatch "
+        f"{WIDE_SCORES['mismatch']} (the mask form of the lookup): "
+        f"bit-exact in forms {forms} on all {len(cases)} sets")
+    sets = [(scoring, tie_batch(B, picks)) for scoring, B, picks in TIE_SETS]
+    for k, (scoring, (text, cands)) in enumerate(sets):
+        c = _to_dev(dev, **cand_inputs(text, cands))
+        wide = {key: v * TIE_SCALE for key, v in scoring.items()}
+        byte = _call(gather_score_ref, c, "scan", scoring)
+        want = _call(gather_score_ref, c, "scan", wide)
+        check(torch.equal(want[:, 1:], byte[:, 1:])
+              and torch.equal(want[:, 0], byte[:, 0] * TIE_SCALE),
+              f"the plain scan at {TIE_SCALE} x the scores of tie set {k} "
+              f"picks other cells")
+        for group in forms:
+            check(torch.equal(_form_out(c, "scan", group, wide), want),
+                  f"sw_batch (mask form {group}) breaks a tie rule of set "
+                  f"{k}")
+        log(f"sw_batch on tie set {k} ({len(cands)} candidates, {wide}): "
+            f"the mask form bit-exact in forms {forms}, the byte form's "
+            f"cells")
+    mask_ms = None
+    for cname in TIMED["sw_batch"]:
+        c = cases[cname]
+        ms = _kernel_ms(c, "scan", 10, 0, WIDE_SCORES)
+        mask_ms = mask_ms if mask_ms is not None else ms
+        log(f"sw_batch [{cname}] N={c['owners'].shape[0]}, the launch "
+            f"alone: mask form (match {WIDE_SCORES['match']}, mismatch "
+            f"{WIDE_SCORES['mismatch']}) {ms} ms against "
+            f"{_kernel_ms(c, 'scan', 10)} ms in the byte form; card: {card}")
+    return mask_ms
 
 
 def _phase_wide_forms(cases, card: str) -> None:
@@ -1057,7 +1123,42 @@ def phase_main_path(dev, card: str, idx, pairs, truth) -> tuple:
     log(f"plain scan re-score of one chunk on the card: "
         f"{len(c['owners'])} candidates, identical={same}")
     check(same, "sw_batch output differs from sw_score_batch_ref")
+    _scan_wide_main_path(dev, card, idx, pairs)
     return stats, lines, recorded
+
+
+def _scan_wide_main_path(dev, card: str, idx, pairs) -> None:
+    """The bench world under WIDE_SCORES with the scan scorer (sw_batch's
+    mask form) and the banded scorer (sw_banded's): one pass each, the
+    same SAM records."""
+    from ema_tpu_torch import config
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.ops.sw import reset_counts
+
+    cfg = config.RunConfig(aligner=config.AlignerParams(
+        match=WIDE_SCORES["match"], mismatch=WIDE_SCORES["mismatch"]))
+    got = {}
+    for sw_impl in ("banded", "scan"):
+        reset_counts()
+        t0 = time.time()
+        got[sw_impl] = Aligner(idx, cfg, device=dev, sw_impl=sw_impl
+                               ).align_batch_to_sam(ReadBatch.from_pairs(
+                                   *pairs))
+        torch.cuda.synchronize()
+        launched = _launched()[MAIN_KERNEL[sw_impl]]
+        log(f"main path [{sw_impl}, match {WIDE_SCORES['match']}, mismatch "
+            f"{WIDE_SCORES['mismatch']}]: one pass (the Aligner's first, "
+            f"warm-up included) {time.time() - t0} s, "
+            f"{len(got[sw_impl])} SAM records, {MAIN_KERNEL[sw_impl]} "
+            f"launched {launched} times, card: {card}")
+        check(launched > 0, f"{sw_impl} at match {WIDE_SCORES['match']} "
+                            f"never launched {MAIN_KERNEL[sw_impl]}")
+    n_diff = sum(a != b for a, b in zip(got["banded"], got["scan"]))
+    log(f"main path at match {WIDE_SCORES['match']}: scan against banded, "
+        f"{n_diff} records differ")
+    check(got["scan"] == got["banded"],
+          f"scan and banded differ at match {WIDE_SCORES['match']}")
 
 
 def phase_recorded(dev, card: str, idx, recorded) -> None:
@@ -1105,6 +1206,11 @@ def phase_recorded(dev, card: str, idx, recorded) -> None:
             ms = _time_ms(lambda: _call(gather_score, c, scorer), 20)
             launch_ms = _kernel_ms(c, scorer, 20)
             forms = []
+            if scorer == "scan":
+                forms.append(f"mask form (match {WIDE_SCORES['match']}, "
+                             f"mismatch {WIDE_SCORES['mismatch']}) "
+                             f"{_kernel_ms(c, scorer, 20, 0, WIDE_SCORES)}"
+                             f" ms")
             for group in FORM_GROUPS.get(scorer, ()):
                 if scorer != "scan":
                     check(np.array_equal(_form_out(c, scorer, group).cpu()
@@ -2400,6 +2506,96 @@ def phase_multihost(dev, card: str, idx, genome, pairs, bc_strs,
           "the two-process align -x records differ from phase_x's")
 
 
+def _tool_cli(tool: str, *args) -> dict:
+    """``python -m ema_tpu_torch.tools.<tool> *args`` behind the import
+    finder; returns its JSON line."""
+    r = subprocess.run(
+        [sys.executable, "-c", "import sys, runpy, chip_smoke; "
+         "chip_smoke.refuse_reference_imports(); sys.argv[0] = 'tool'; "
+         f"runpy.run_module('ema_tpu_torch.tools.{tool}', "
+         "run_name='__main__')", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=900)
+    check(r.returncode == 0, f"tools.{tool} failed (exit {r.returncode}):"
+                             f"\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def phase_tools(dev, card: str, idx, pairs) -> None:
+    """The tool twins of ema_tpu_torch/tools/ on the card, each once: the
+    bench (BASELINE config 1 at full size, on the smoke's bench world and
+    index), ab_align, hostbound, prof_pipeline and prof_smem on the same
+    world; the config tools (bench_configs config4, bench_config5, as
+    subprocesses through the port's CLI) and the accuracy tools at the
+    reduced sizes logged beside them.  Each JSON line is logged and each
+    tool's own checks must hold."""
+    from ema_tpu_torch.tools import (ab_align, bench, chain_recall,
+                                     diagnose_mapq, hostbound,
+                                     measure_accuracy, prof_pipeline,
+                                     prof_smem)
+
+    def show(name, payload, t0):
+        log(f"tools.{name} ({time.time() - t0} s): {json.dumps(payload)}")
+
+    t0 = time.time()
+    res = bench.measure(idx, pairs, dev, card, stage_timers=True)
+    show("bench [BASELINE config 1, full size]", res, t0)
+    check(res["device"] == str(dev) and res["card"] == card
+          and len(res["passes_s"]) <= bench.MAX_PASSES and res["value"] > 0,
+          f"tools.bench gave {res}")
+    t0 = time.time()
+    res = ab_align.run(idx, pairs, ["devem", "hostem"], dev, card, reps=2,
+                       check_equal=True)
+    show("ab_align devem hostem --check-equal --reps 2", res, t0)
+    t0 = time.time()
+    res = hostbound.measure(idx, pairs, dev, card, reps=1)
+    show("hostbound --reps 1", res, t0)
+    check(res["frontend_overlap_wall_s"] > 0 and "sw[device]"
+          in res["stages_thread_s"], "tools.hostbound found no SW stage")
+    t0 = time.time()
+    res = prof_pipeline.measure(idx, pairs, dev, card, reps=1)
+    show("prof_pipeline --reps 1", res, t0)
+    t0 = time.time()
+    res = prof_smem.measure(idx, pairs, reps=1)
+    show("prof_smem --reps 1", res, t0)
+    check(len(res["seeders"]) == 5, "tools.prof_smem ran no seeder")
+
+    t0 = time.time()
+    res = _tool_cli("bench_configs", "config4", "--genome", "2000000",
+                    "--pairs", "8000", "--buckets", "50")
+    show("bench_configs config4 --genome 2000000 --pairs 8000 --buckets 50",
+         res, t0)
+    check(res["card"] == card, "tools.bench_configs ran off the card")
+    t0 = time.time()
+    res = _tool_cli("bench_config5", "--barcodes", "100")
+    show("bench_config5 --barcodes 100", res, t0)
+    t0 = time.time()
+    res = _tool_cli("verify_drive")
+    show("verify_drive", res, t0)
+    check(res["ok"], "tools.verify_drive failed")
+
+    t0 = time.time()
+    res = measure_accuracy.measure(dev, card, 3_000_000, 20_000)
+    show("measure_accuracy --genome 3000000 --pairs 20000", res, t0)
+    check(res["at_truth_pct_of_mapped"] >= 98
+          and all(b["n"] for b in res["mapq_calibration"].values()),
+          "tools.measure_accuracy: under 98% at truth or an empty mapq bin")
+    t0 = time.time()
+    genome, fams, sim = chain_recall.build_world(np.random.default_rng(5),
+                                                 2_000_000, 6_000)
+    res = chain_recall.measure_recall(genome, fams, sim, device=dev)
+    show("chain_recall (the world of tests/test_chain_recall.py: 2 Mbp, "
+         "6,000 pairs, smem)", res, t0)
+    by = res["recall_by_edit_delta"]
+    check(by["d_le3"]["n"] >= 200 and by["d_le3"]["recall_pct"] >= 99.9
+          and by["d0"]["recall_pct"] >= 99.9,
+          "tools.chain_recall: near-co-optimal recall under 99.9%")
+    t0 = time.time()
+    terms, stats, _ = diagnose_mapq.capture(
+        *diagnose_mapq.repeat_world(2_000_000, 8_000), dev)
+    show("diagnose_mapq --genome 2000000 --pairs 8000",
+         diagnose_mapq.decompose(terms, stats), t0)
+
+
 def ptxas_functions(text: str) -> list:
     """(kernel, registers, spill-store bytes) of each entry function that
     ``ptxas -v`` reports, the kernel named by its template arguments
@@ -2486,6 +2682,7 @@ def main() -> int:
     phase(phase_sharded, dev, card)
     phase(phase_mesh, dev, card, idx, pairs, default_lines)
     phase(phase_multihost, dev, card, idx, genome, pairs, bc_strs, x_body)
+    phase(phase_tools, dev, card, idx, pairs)
 
     torch.cuda.synchronize()
     loaded = reference_modules_loaded()
@@ -2503,6 +2700,8 @@ def main() -> int:
         # ms: the wrapper's call; launch_ms: its kernel launches alone
         "ms": kstats[name]["ms"],
         "launch_ms": kstats[name].get("launch_ms", kstats[name]["ms"]),
+        **({"mask_launch_ms": kstats[name]["mask_launch_ms"]}
+           if "mask_launch_ms" in kstats[name] else {}),
         "plain_ms": kstats[name]["plain_ms"],
         "bound_ms": kstats[name]["bound_ms"],
         "bound_by": kstats[name]["bound_by"],

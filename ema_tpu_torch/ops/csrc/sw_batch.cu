@@ -43,7 +43,17 @@
 //     carries a word of four score bytes, one per read base (all -1 for a
 //     column that is N or outside the text), each row a selector that
 //     sign-extends its base's byte (a read N selects a -1 byte of the
-//     second operand).  Scores must fit a signed byte;
+//     second operand).  That is the byte form (BYTE), for scores within a
+//     signed byte.  Any other int32 scoring takes the mask form of the
+//     same lookup: the column's word is an equal-base mask (byte c all
+//     ones for a column of base c, no byte for an N), the row's selector
+//     picks its base's byte of it and of the column's N mask (all ones
+//     where the word is 0), and sub = ((eq & (match ^ -mismatch)) ^
+//     -mismatch) | isn: two permutes and two logic operations where the
+//     byte form takes one permute.  The mask form holds the int32
+//     arithmetic of the plain version as long as no score leaves
+//     (NEG / 2, -NEG / 2) (ops/sw.py:_check_int32_range); the packed keys
+//     (column << 10 | start) do not depend on the scoring;
 //   * the window is read once a candidate: every G steps a group loads
 //     its next G columns, one byte a thread, side by side, and builds
 //     their score words; thread 0 takes its column's word by one shuffle
@@ -79,7 +89,12 @@ __device__ __forceinline__ uint32_t score_word(int32_t fc, uint32_t all_mm,
     return fc >= 4 ? 0xffffffffu : all_mm ^ (delta << (8 * fc));
 }
 
-template <int R, int G>
+// the mask form's word of a window column: byte fc all ones, none for an N
+__device__ __forceinline__ uint32_t mask_word(int32_t fc) {
+    return fc >= 4 ? 0u : 0xffu << (8 * fc);
+}
+
+template <int R, int G, bool BYTE>
 __global__ void __launch_bounds__(128)
 sw_batch_kernel(const uint8_t *__restrict__ text, int64_t text_n,
                 const uint8_t *__restrict__ oriented, int64_t L,
@@ -111,6 +126,10 @@ sw_batch_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     const int32_t i0 = sl * R + 1;            // this thread's first row
     const uint32_t all_mm = 0x01010101u * (uint32_t)((-p.mismatch) & 0xff);
     const uint32_t delta = (uint32_t)(((-p.mismatch) ^ p.match) & 0xff);
+    const uint32_t xr = (uint32_t)(p.match ^ -p.mismatch);     // mask form
+    const uint32_t mmr = (uint32_t)(-p.mismatch);
+    // the word of no column: all -1 scores, or no equal base
+    constexpr uint32_t kNoColumn = BYTE ? 0xffffffffu : 0u;
 
     // per row: the selector that sign-extends the score byte of its read
     // base (byte 4, of the all -1 operand, past the read or on an N), the
@@ -132,8 +151,8 @@ sw_batch_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     int32_t uH = NEG, uV = NEG, uSH = 0, uSV = 0, gH = NEG, gSH = 0;
     // this thread's last row at the last column it scored
     int32_t oH = NEG, oV = NEG, oS = 0;
-    uint32_t word = 0xffffffffu;      // score word of this thread's column
-    uint32_t buf = 0xffffffffu;       // that of column s0 + sl + 1
+    uint32_t word = kNoColumn;        // score word of this thread's column
+    uint32_t buf = kNoColumn;         // that of column s0 + sl + 1
 
     const int32_t active = (rl + R - 1) / R;  // threads holding read rows
     int32_t steps = (rl > 0 && nl > 0) ? nl + active - 1 : 0;
@@ -145,9 +164,10 @@ sw_batch_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     }
 
     for (int32_t s = 0; s < steps; ++s) {
-        if ((s & (G - 1)) == 0)
-            buf = score_word(sw::text_at(text, text_n, lo + s + sl), all_mm,
-                             delta);
+        if ((s & (G - 1)) == 0) {
+            const int32_t fc = sw::text_at(text, text_n, lo + s + sl);
+            buf = BYTE ? score_word(fc, all_mm, delta) : mask_word(fc);
+        }
         const uint32_t w0 = __shfl_sync(kFull, buf, s & (G - 1), G);
         if (sl == 0) word = w0;
         const int32_t j = s - sl + 1;
@@ -155,11 +175,18 @@ sw_batch_kernel(const uint8_t *__restrict__ text, int64_t text_n,
             const int32_t jp = j << kStartBits;
             int32_t upH = uH, upV = uV, upSH = uSH, upSV = uSV;
             int32_t dgH = gH, dgSH = gSH;
+            const uint32_t wn = word == 0u ? 0xffffffffu : 0u;  // N column
 #pragma unroll
             for (int r = 0; r < R; ++r) {
                 const int32_t fresh = (r == 0 && sl == 0) ? 0 : -p.clip;
-                const int32_t sub =
-                    (int32_t)sw::prmt(word, 0xffffffffu, sel[r]);
+                int32_t sub;
+                if constexpr (BYTE) {
+                    sub = (int32_t)sw::prmt(word, 0xffffffffu, sel[r]);
+                } else {
+                    const uint32_t eq = sw::prmt(word, 0u, sel[r]);
+                    const uint32_t isn = sw::prmt(wn, 0xffffffffu, sel[r]);
+                    sub = (int32_t)(((eq & xr) ^ mmr) | isn);
+                }
                 bool pd, pv, ph, pdv, pm;
                 const int32_t hdg = __vibmax_s32(dgH, fresh, &pd) + sub;
                 const int32_t sdg = pd ? dgSH : i0 + r - 1;
@@ -226,6 +253,7 @@ struct Args {
     const int32_t *win_len;
     int64_t N;
     sw::Scoring p;
+    bool byte_scores;        // the byte form, else the mask form
     int32_t *out;
     cudaStream_t stream;
 };
@@ -233,10 +261,15 @@ struct Args {
 template <int R, int G>
 void launch(const Args &a) {
     constexpr int per_block = 128 / G;
-    const int64_t blocks = (a.N + per_block - 1) / per_block;
-    sw_batch_kernel<R, G><<<(unsigned)blocks, 128, 0, a.stream>>>(
-        a.text, a.text_n, a.oriented, a.L, a.olens, a.owners, a.win_lo,
-        a.win_len, a.N, a.p, a.out);
+    const unsigned blocks = (unsigned)((a.N + per_block - 1) / per_block);
+    if (a.byte_scores)
+        sw_batch_kernel<R, G, true><<<blocks, 128, 0, a.stream>>>(
+            a.text, a.text_n, a.oriented, a.L, a.olens, a.owners, a.win_lo,
+            a.win_len, a.N, a.p, a.out);
+    else
+        sw_batch_kernel<R, G, false><<<blocks, 128, 0, a.stream>>>(
+            a.text, a.text_n, a.oriented, a.L, a.olens, a.owners, a.win_lo,
+            a.win_len, a.N, a.p, a.out);
 }
 
 // The thread forms, rows a thread by threads a candidate:
@@ -270,9 +303,10 @@ extern "C" {
 // L, or 0 for L), which with N picks the threads a candidate and the rows
 // a thread; group is 0 for that choice, or 8 or 32 to time one form
 // against the other (8 threads give way to 32 where they cannot hold the
-// call's rows).  wl is not read (the corridor is the window).  match and
-// -mismatch must fit a signed byte.  Returns the launch's
-// cudaGetLastError(); does not synchronise.
+// call's rows).  wl is not read (the corridor is the window).  Scores
+// within a signed byte take the byte form of the lookup, any other int32
+// scoring its mask form.  Returns the launch's cudaGetLastError(); does
+// not synchronise.
 int sw_batch_launch(const void *text, int64_t text_n, const void *oriented,
                     int64_t L, const void *olens, const void *owners,
                     const void *win_lo, const void *win_len, const void *wl,
@@ -285,8 +319,6 @@ int sw_batch_launch(const void *text, int64_t text_n, const void *oriented,
         return (int)cudaErrorInvalidValue;
     if (group != 0 && group != 8 && group != 32)
         return (int)cudaErrorInvalidValue;
-    if (match < -127 || match > 127 || mismatch < -127 || mismatch > 127)
-        return (int)cudaErrorInvalidValue;
     const Args a{static_cast<const uint8_t *>(text), text_n,
                  static_cast<const uint8_t *>(oriented), L,
                  static_cast<const int32_t *>(olens),
@@ -294,6 +326,8 @@ int sw_batch_launch(const void *text, int64_t text_n, const void *oriented,
                  static_cast<const int64_t *>(win_lo),
                  static_cast<const int32_t *>(win_len), N,
                  sw::Scoring{match, mismatch, gap_open, gap_extend, clip},
+                 match >= -127 && match <= 127 && mismatch >= -127
+                     && mismatch <= 127,
                  static_cast<int32_t *>(out),
                  static_cast<cudaStream_t>(stream)};
     const int64_t rows = max_rl > 0 ? max_rl : (L > 0 ? L : 1);

@@ -21,9 +21,9 @@ its size call for; ``packed`` once, 16 threads x 4 lanes or, for a call
 of more than 8 candidates an SM, 8 x 8); on CPU tensors its plain
 version runs.  A CUDA tensor never runs the plain version, and a failed
 build or launch raises.  All four are one-pass kernels of their own that
-look the substitution score up as a signed byte; ``sw_banded`` alone
-also takes any other int32 scoring (in the mask form of its lookups), as
-the JAX banded scorer does.
+look the substitution score up as a signed byte; ``sw_banded`` and
+``sw_batch`` also take any other int32 scoring (in the mask form of their
+lookups), as the JAX banded and scan scorers do.
 
 The plain versions follow the JAX package exactly: ``sw_score_banded_ref``
 is ema_tpu/ops/sw.py:sw_score_banded, ``sw_score_banded16_ref`` the same
@@ -119,10 +119,25 @@ def _check_int16_range(m, w_band, match, mismatch, gap_open, gap_extend,
                          f"(m={m}, w_band={w_band})")
 
 
+def _check_int32_range(m, match, mismatch, gap_open, gap_extend,
+                       clip) -> None:
+    """sw_batch holds the plain version's int32 arithmetic while every
+    score stays within (NEG / 2, -NEG / 2): a cell scores at most m *
+    match and, from its first column on, at least -(clip + mismatch), and
+    the sentinel NEG minus both gaps must not wrap.  Its packed keys
+    (column << 10 | start row) depend on the window and the read, never on
+    the scoring."""
+    top = (m * max(abs(match), 1) + abs(mismatch) + abs(gap_open)
+           + abs(gap_extend) + abs(clip))
+    if top >= -NEG // 2:
+        raise ValueError(f"scan: scores would come within half of the "
+                         f"int32 sentinel NEG (m={m}, match={match}, "
+                         f"mismatch={mismatch})")
+
+
 def _check_byte_scores(name, match, mismatch) -> None:
-    """sw_batch, sw_banded16 and sw_banded_packed look the substitution
-    score up as a signed byte; gather_score holds the CPU to the same
-    limit."""
+    """sw_banded16 and sw_banded_packed look the substitution score up as
+    a signed byte; gather_score holds the CPU to the same limit."""
     if not (-127 <= match <= 127 and -127 <= mismatch <= 127):
         raise ValueError(f"{name}: match and mismatch must fit a signed "
                          f"byte (got {match}, {mismatch})")
@@ -636,9 +651,15 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
     owners int32 [N], win_lo int64 [N], win_len int32 [N], wl int32 [N],
     all on one device.  ``scorer`` is one of banded, banded16, packed
     (wl <= 64) or scan (wl ignored).  CUDA: the scorer's kernel; CPU: its
-    plain version.  Under scan, banded16 and packed ``match`` and
-    ``mismatch`` must lie within +-127 on either device: their kernels look
-    the substitution score up as a signed byte.
+    plain version.  banded and scan take any int32 scoring (scan while
+    no score nears the sentinel, ``_check_int32_range``): their kernels
+    switch to the mask form of the lookup past a signed byte.  Under
+    banded16 and packed ``match`` and ``mismatch`` must lie within +-127 on
+    either device: their kernels look the substitution score up as a
+    signed byte, and a scoring past it gains nothing there, since on reads
+    over 64 bp it already leaves the int16 range (``_check_int16_range``)
+    or the JAX pair-packed kernel's own key range (m * match + 64 *
+    gap_extend < 8191, ema_tpu/ops/sw_pallas.py:743-744).
     """
     if scorer not in KERNEL_OF:
         raise ValueError(f"gather_score: unknown scorer {scorer!r} (one of "
@@ -655,8 +676,11 @@ def gather_score(text, oriented, olens, owners, win_lo, win_len, wl, *,
               gap_open=gap_open, gap_extend=gap_extend, clip=clip)
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"gather_score: unsupported device {dev}")
-    if scorer in ("scan", "banded16", "packed"):
+    if scorer in ("banded16", "packed"):
         _check_byte_scores(KERNEL_OF[scorer], match, mismatch)
+    elif scorer == "scan":
+        _check_int32_range(oriented.shape[1], match, mismatch, gap_open,
+                           gap_extend, clip)
     CALLS[scorer].add()
     if dev.type == "cuda":
         out, launch = _plan_kernel(text, oriented, olens, owners, win_lo,

@@ -154,8 +154,11 @@ def _fn(kernel: str, args: str) -> str:
 
 
 CELL_LOOPS = {
-    "sw_batch 8x13": ("sw_batch", _fn("sw_batch", "Li13ELi8E"), 13),
-    "sw_batch 32x4": ("sw_batch", _fn("sw_batch", "Li4ELi32E"), 4),
+    # the byte form of the lookup, and the mask form (scores past a byte)
+    "sw_batch 8x13": ("sw_batch", _fn("sw_batch", "Li13ELi8ELb1E"), 13),
+    "sw_batch 32x4": ("sw_batch", _fn("sw_batch", "Li4ELi32ELb1E"), 4),
+    "sw_batch 8x13 mask": ("sw_batch", _fn("sw_batch", "Li13ELi8ELb0E"),
+                           13),
     "sw_banded16 8x8": ("sw_banded16", _fn("sw_banded16", "Li4ELi8ELi1E"),
                         8),
     "sw_banded16 32x2": ("sw_banded16",

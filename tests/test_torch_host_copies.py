@@ -704,10 +704,11 @@ def test_native_builds_race_free(tmp_path):
 
 
 def test_port_sources_never_reach_for_the_jax_package():
-    """No file of the port, its launcher or chip_smoke.py imports
-    ``ema_tpu`` or jax, or opens, joins or loads a path or module name
-    under it: what mentions are left name the counterpart in comments,
-    docstrings and the kernels' ``replaces`` records."""
+    """No file of the port (its tools included), its launcher or
+    chip_smoke.py imports ``ema_tpu``, jax or the tests, or opens, joins
+    or loads a path or module name under the JAX package: what mentions
+    are left name the counterpart in comments, docstrings and the
+    kernels' ``replaces`` records."""
     import re
 
     files = [os.path.join(ROOT, "chip_smoke.py"),
@@ -716,7 +717,8 @@ def test_port_sources_never_reach_for_the_jax_package():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith((".py", ".cpp", ".cu", ".cuh"))]
     assert len(files) > 40
-    imp = re.compile(r"^\s*(from|import)\s+(ema_tpu|jax|jaxlib)(\.|\s|$)")
+    imp = re.compile(r"^\s*(from|import)\s+(ema_tpu|jax|jaxlib|tests)"
+                     r"(\.|\s|$)")
     reach = re.compile(r"open\(|join\(|Path\(|import_module|__import__|"
                        r"exec\(|spec_from_file_location|CDLL\(|#include")
     for path in files:

@@ -96,6 +96,26 @@ def test_golden_sam_cpu_every_scorer(sw_impl):
                     "scan": {"scan"}, "native": set()}[sw_impl]
 
 
+def test_scan_scorer_takes_wide_scores_as_jax(monkeypatch):
+    """The scan scorer under a scoring past a signed byte (match 200,
+    mismatch 150: sw_batch's mask form on a card, its plain version here)
+    gives the JAX scan scorer's SAM on the golden world."""
+    from chip_smoke import golden_world
+
+    contigs, _, pairs = golden_world()
+    idx = build_index(contigs)
+    cfg = config.RunConfig(batch_size=512, seed=7,
+                           aligner=config.AlignerParams(match=200,
+                                                        mismatch=150))
+    monkeypatch.setenv("EMA_TPU_SW_IMPL", "scan")
+    want = jax_pipeline.Aligner(idx, cfg).align_batch_to_sam(
+        jax_pipeline.ReadBatch.from_pairs(*pairs))
+    got = Aligner(idx, cfg, device="cpu", sw_impl="scan").align_batch_to_sam(
+        ReadBatch.from_pairs(*pairs))
+    assert len(got) == len(want) > 100
+    assert got == want
+
+
 @pytest.fixture(scope="module")
 def repeat_world():
     """The repeat world of tests/test_pipeline.py:129 (2 Mbp, three
@@ -460,6 +480,15 @@ from ema_tpu_torch.tools import bench_sw
 os.environ["EMA_TPU_BENCH_SW_B"] = "16"
 assert bench_sw.main(["cpu", "--json", os.path.join(tmp, "bsw.json")]) == 0
 assert main(["samdiff", out, out, "--fail-under", "100"]) == 0
+# a tool twin of each part: the bench, a host profiler, a config
+# tool (its CLI subprocesses are the port's) and an accuracy tool
+from ema_tpu_torch.tools import (bench, bench_configs, hostbound,
+                                 measure_accuracy)
+small = ["--device", "cpu", "--genome", "200000", "--pairs", "600"]
+assert bench.main(small) == 0
+assert hostbound.main([*small, "--reps", "1"]) == 0
+assert bench_configs.main(["config4", *small, "--buckets", "8"]) == 0
+assert measure_accuracy.main(small) == 0
 loaded = chip_smoke.reference_modules_loaded()
 assert not loaded, f"modules of jax or ema_tpu were imported: {loaded}"
 print("NO_JAX_OK", len(recs))
@@ -469,10 +498,11 @@ print("NO_JAX_OK", len(recs))
 def test_align_and_cli_never_import_jax(tmp_path):
     """Every mode of the port (count, preproc, index, align -s / -x
     --sort --manifest, samdiff, a sharded index, both EM and both seed
-    placements, bench_sw cpu, and preproc and align -x with --coordinator
-    as two processes of one gloo group) in subprocesses whose import
-    finder refuses jax, jaxlib and ema_tpu: none of their modules is
-    loaded at the end."""
+    placements, bench_sw cpu, preproc and align -x with --coordinator
+    as two processes of one gloo group, and the tool twins bench,
+    hostbound, bench_configs config4 and measure_accuracy) in
+    subprocesses whose import finder refuses jax, jaxlib and ema_tpu:
+    none of their modules is loaded at the end."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [ROOT] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)

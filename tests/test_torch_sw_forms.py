@@ -11,7 +11,9 @@ version and, on a subset, against the Pallas kernels in interpret mode:
   rows past the read left unmasked, the substitution score as one
   byte permute (``prmt``) of a column's score word by a row's selector, the window
   loaded G columns at a time and handed down the wavefront with the row
-  state (start rows packed in one word);
+  state (start rows packed in one word); with ``byte=False`` the mask
+  form of the lookup, for scores past a signed byte (two permutes, of an
+  equal-base mask and of an N mask);
 * ``emulate_banded16(H, SEGW)``: csrc/sw_banded16.cu's s16x2 row sweep in
   one pass, with the static lane mask, the tail-row mask, base selectors
   that slide with a byte permute and every s16x2 operation wrapping at
@@ -73,9 +75,27 @@ def test_prmt_looks_up_signed_scores():
 # sw_batch_kernel<R, G>
 # ----------------------------------------------------------------------
 
-def emulate_batch(R, G, cands, match, mismatch, gap_open, gap_extend, clip):
+def mask_word(fc):
+    """The mask form's word of a window base: byte fc all ones, none for
+    an N (code >= 4)."""
+    fc = np.asarray(fc, np.int64)
+    return np.where(fc >= 4, 0,
+                    0xff << (8 * np.minimum(fc, 3))).astype(U32)
+
+
+def emulate_batch(R, G, cands, match, mismatch, gap_open, gap_extend, clip,
+                  byte=None):
     """``cands``: up to 32 / G tuples (read codes, window codes); returns
-    their (score, qb, qe, ref_end) rows as the kernel writes them."""
+    their (score, qb, qe, ref_end) rows as the kernel writes them.
+    ``byte`` picks the byte form of the substitution lookup or (False) its
+    mask form; None picks as the launch does, the byte form for scores
+    within a signed byte."""
+    if byte is None:
+        byte = -127 <= match <= 127 and -127 <= mismatch <= 127
+    byte_form = byte
+    xr = U32((match ^ -mismatch) & 0xffffffff)
+    mmr = U32((-mismatch) & 0xffffffff)
+    no_column = 0xffffffff if byte_form else 0
     nseg = T // G
     assert len(cands) <= nseg
     t = np.arange(T)
@@ -111,8 +131,8 @@ def emulate_batch(R, G, cands, match, mismatch, gap_open, gap_extend, clip):
     gH, gSH = np.full(T, NEG, np.int64), np.zeros(T, np.int64)
     oH, oV = np.full(T, NEG, np.int64), np.full(T, NEG, np.int64)
     oS = np.zeros(T, np.int64)
-    word = np.full(T, 0xffffffff, U32)
-    buf = np.full(T, 0xffffffff, U32)
+    word = np.full(T, no_column, U32)
+    buf = np.full(T, no_column, U32)
 
     active = (rl + R - 1) // R
     steps = np.where((rl > 0) & (nl > 0), nl + active - 1, 0)
@@ -124,7 +144,9 @@ def emulate_batch(R, G, cands, match, mismatch, gap_open, gap_extend, clip):
 
     for s in range(int(steps[0])):
         if s % G == 0:
-            buf = score_word(text_at(s + sl), match, mismatch)
+            fc = text_at(s + sl)
+            buf = (score_word(fc, match, mismatch) if byte_form
+                   else mask_word(fc))
         w0 = _shfl_idx(buf, s % G, G)
         word = np.where(sl == 0, w0, word)
         j = s - sl + 1
@@ -132,9 +154,15 @@ def emulate_batch(R, G, cands, match, mismatch, gap_open, gap_extend, clip):
         jp = j << 10
         upH, upV, upSH, upSV = uH, uV, uSH, uSV
         dgH, dgSH = gH, gSH
+        wn = np.where(word == 0, 0xffffffff, 0).astype(U32)   # N column
         for r in range(R):
             fresh = np.where((r == 0) & (sl == 0), 0, -clip)
-            sub = _i32(prmt(word, 0xffffffff, sel[:, r]))
+            if byte_form:
+                sub = _i32(prmt(word, 0xffffffff, sel[:, r]))
+            else:
+                eq = prmt(word, 0, sel[:, r])
+                isn = prmt(wn, 0xffffffff, sel[:, r])
+                sub = _i32(((eq & xr) ^ mmr) | isn)
             pd = dgH >= fresh
             hdg = np.where(pd, dgH, fresh) + sub
             sdg = np.where(pd, dgSH, i0 + r - 1)
@@ -281,6 +309,83 @@ def test_batch_wavefront_emulation_equals_pallas(R, G):
     for col, k in enumerate(KEYS):
         np.testing.assert_array_equal(got[:, col], np.asarray(want[k]), k)
     assert int(got[:, 0].min()) >= 60
+
+
+WIDE = dict(SW, match=200, mismatch=150)
+
+
+@pytest.mark.parametrize("R,G", BATCH_FORMS,
+                         ids=[f"{g}x{r}" for r, g in BATCH_FORMS])
+def test_batch_mask_form_emulation(R, G):
+    """Every thread form of sw_batch in the mask form of its lookup (match
+    200, mismatch 150, past a signed byte), N bases on both sides, against
+    the plain anti-diagonal sweep."""
+    rng = np.random.default_rng(2000 * G + 10 * R)
+    rows = min(R * G, 150)
+    cands = _batch_candidates(rng, T // G, rows)
+    got = emulate_batch(R, G, cands, **WIDE)
+    reads, rl, refs, nl = _batch_plain(cands)
+    want = sw_score_batch_ref(*(torch.from_numpy(a) for a in (
+        reads, rl, refs, nl)), **WIDE).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert int(want[:, 0].max()) >= 200 * (min(rows, 10) - 4)
+
+
+@pytest.mark.parametrize("R,G", [(13, 8), (4, 32)], ids=["8x13", "32x4"])
+def test_batch_mask_form_equals_pallas(R, G):
+    """The two forms a 100 bp read takes, in the mask form (match 200,
+    mismatch 150), 100 bp reads with an N in 150-column windows with an N,
+    against the Pallas anti-diagonal kernel in interpret mode."""
+    rng = np.random.default_rng(91 + G)
+    cands = []
+    for c in range(T // G):
+        win = rng.integers(0, 4, 150).astype(np.int64)
+        o = int(rng.integers(0, 50))
+        read = win[o:o + 100].copy()
+        read[rng.integers(0, 100, 3)] ^= 2
+        read[int(rng.integers(0, 100))] = 4
+        win[int(rng.integers(0, 150))] = 5
+        if c % 2:
+            read = np.concatenate([read[:40], read[42:], [1, 2]])
+        cands.append((read, win))
+    got = emulate_batch(R, G, cands, **WIDE)
+    reads, rl, refs, nl = _batch_plain(cands)
+    want = sw_score_batch_pallas(*(jnp.asarray(a) for a in (
+        reads, rl, refs, nl)), interpret=True, **WIDE)
+    for col, k in enumerate(KEYS):
+        np.testing.assert_array_equal(got[:, col], np.asarray(want[k]), k)
+    assert int(got[:, 0].min()) >= 60 * 200
+
+
+def scaled(scoring, k):
+    """A scoring with every score times k: on reads and windows without an
+    N (whose -1 does not scale) each cell's value is k times the original
+    and every tie falls the same way."""
+    return {key: v * k for key, v in scoring.items()}
+
+
+@pytest.mark.parametrize("R,G", [(7, 8), (4, 32)], ids=["8x7", "32x4"])
+def test_batch_mask_form_keeps_the_tie_rules(R, G):
+    """The tie sets (chip_smoke.TIE_SETS: two-letter reads and windows of
+    many equal paths) in the mask form at every score times 200 pick the
+    byte form's cells at the original scoring, row for row, and equal the
+    plain sweep."""
+    for scoring, B, picks in TIE_SETS:
+        text, cands = _tie_batch(B, picks)
+        wins = [(r, text[lo:lo + n].astype(np.int64)) for r, lo, n, _ in
+                cands]
+        wide = scaled(scoring, 200)
+        nseg = T // G
+        for k in range(0, len(wins), nseg):
+            part = wins[k:k + nseg]
+            byte = emulate_batch(R, G, part, **scoring, byte=True)
+            mask = emulate_batch(R, G, part, **wide, byte=False)
+            reads, rl, refs, nl = _batch_plain(part)
+            want = sw_score_batch_ref(*(torch.from_numpy(a) for a in (
+                reads, rl, refs, nl)), **wide).numpy()
+            np.testing.assert_array_equal(mask, want)
+            np.testing.assert_array_equal(mask[:, 1:], byte[:, 1:])
+            np.testing.assert_array_equal(mask[:, 0], 200 * byte[:, 0])
 
 
 # ----------------------------------------------------------------------
@@ -582,25 +687,62 @@ def test_sign_mask_needs_the_range_check():
     assert (_hi16(_max_ge(a, b)[1]) == _hi16(_ge_mask(a, b))).all()
 
 
+def _gathered(c):
+    """The reads and windows of gather_score's inputs ``c`` (numpy), as
+    ema_tpu/core/pipeline.py:_gather_score cuts them: columns outside the
+    text read 5."""
+    n = c["text"].shape[0]
+    own = c["owners"].astype(np.int64)
+    cols = (c["win_lo"][:, None]
+            + np.arange(int(c["win_len"].max()))[None, :])
+    wins = np.where((cols < 0) | (cols >= n), 5,
+                    c["text"][np.clip(cols, 0, n - 1)]).astype(np.int32)
+    return (c["oriented"][own].astype(np.int32), c["olens"][own], wins,
+            c["win_len"])
+
+
 @pytest.mark.parametrize("scorer", ["scan", "banded16", "packed"])
 @pytest.mark.parametrize("scores", [dict(match=128), dict(mismatch=128),
                                     dict(match=-128)],
                          ids=["match128", "mismatch128", "match-128"])
 def test_byte_scores_are_checked_on_either_device(scorer, scores):
-    """sw_batch, sw_banded16 and sw_banded_packed look the substitution
-    score up as a signed byte, so gather_score refuses a match or mismatch
-    beyond +-127 under their scorers wherever the tensors lie; +-127
-    itself and the banded scorer pass."""
+    """sw_banded16 and sw_banded_packed look the substitution score up as
+    a signed byte, so gather_score refuses a match or mismatch beyond
+    +-127 under their scorers wherever the tensors lie; +-127 itself and
+    the banded scorer pass.  scan takes such a scoring (sw_batch switches
+    to the mask form of its lookup) and equals the JAX scan scorer, the
+    Pallas anti-diagonal kernel in interpret mode."""
     rng = np.random.default_rng(5)
-    c = _t(_inputs(rng, np.full(6, 8, np.int32)))
+    raw = _inputs(rng, np.full(6, 8, np.int32))
+    c = _t(raw)
     kw = dict(SW, **scores)
+    if scorer == "scan":
+        got = gather_score(*c, scorer="scan", **kw).numpy()
+        want = sw_score_batch_pallas(*(jnp.asarray(a) for a in _gathered(
+            raw)), interpret=True, **kw)
+        for col, k in enumerate(KEYS):
+            np.testing.assert_array_equal(got[:, col], np.asarray(want[k]),
+                                          k)
+        return
     with pytest.raises(ValueError, match="signed byte"):
         gather_score(*c, scorer=scorer, **kw)
     edge = {k: 127 if v > 0 else -127 for k, v in scores.items()}
-    gather_score(*c, scorer="scan", **dict(SW, **edge))
+    gather_score(*c, scorer=scorer, **dict(SW, **edge))
     want = gather_score_ref(*c, scorer="banded", **kw)
     np.testing.assert_array_equal(
         gather_score(*c, scorer="banded", **kw).numpy(), want.numpy())
+
+
+def test_scan_scores_are_checked_near_the_sentinel():
+    """scan takes any int32 scoring whose scores stay clear of half the
+    sentinel NEG (ops/sw._check_int32_range), on either device."""
+    rng = np.random.default_rng(6)
+    c = _t(_inputs(rng, np.full(4, 8, np.int32)))
+    L = c[1].shape[1]
+    ok = -NEG // 2 // L - 100
+    gather_score(*c, scorer="scan", **dict(SW, match=ok))
+    with pytest.raises(ValueError, match="sentinel"):
+        gather_score(*c, scorer="scan", **dict(SW, match=-NEG // 2 // L + 1))
 
 
 # ----------------------------------------------------------------------
