@@ -37,6 +37,19 @@ failure raises and the run exits non-zero:
      its sets and on the tie sets at every score times 200, where it
      must pick the byte form's cells, and its launches timed in the mask
      and the byte form;
+ 2b. sanitize: every instantiation of the five kernels (86: each form of
+     each launch table, byte and mask scorings, the probe's unrolls and
+     forms) on small sets (odd N, segments past N, mixed read lengths with
+     tail rows, windows off both ends of the text, alignments that cross
+     warps through shared memory) and one sorted class call, each held
+     bit-exact to its plain version, in subprocesses under
+     compute-sanitizer's memcheck, racecheck, synccheck and initcheck
+     (only the port's kernels instrumented) and under the card's own
+     checks: a fenced allocator (unmapped memory past either end of every
+     buffer, its bytes poisoned) and the SW kernels built with schedule
+     fuzzing; a tool that declines the card is reported as refused (with
+     the tool's version, the driver and the kernel), any error fails the
+     phase;
   3. fm: the torch FM-index ops on the card against the native host ops,
      bit-exact, on one bench-world chunk, at sa_rate 2 and 4: locate of
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
@@ -123,19 +136,29 @@ failure raises and the run exits non-zero:
      sizes; measure_accuracy (3 Mbp, 20,000 pairs: >= 98% at truth, every
      mapq bin populated), chain_recall on tests/test_chain_recall.py's
      world (d0 and d_le3 recall >= 99.9%) and diagnose_mapq;
+ 14b. stream sanitize: a reduced bench-world pass (8,192 pairs, 4 chunks
+     in flight, device EM on its side stream), a 2 x 2 mesh step and the
+     2-cell Aligner under torch's stream sanitizer, in every thread, with
+     every kernel launch handed to it as the buffers it reads and writes
+     on its stream: no data race;
  15. checks: synchronise, and neither jax nor ema_tpu was imported.
 
 The line before the last is the card's name and power limit as nvidia-smi
-prints them, the one before it the per-kernel JSON record; the last line
-is {"ok": true, "device": {...}}.  Imports nothing of JAX and nothing of
-the JAX package.
+prints them, the one before it the per-kernel JSON record (with what each
+sanitizer said of the kernel); the last line is {"ok": true, "device":
+{...}}.  ``--sanitize-drive SETS [--fence end|start] [--fuzz]`` and
+``--stream-sanitize-drive`` are the two sanitizer phases' subprocesses,
+and rerun one check alone (the drive makes SETS where it is missing).
+Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2596,6 +2619,760 @@ def phase_tools(dev, card: str, idx, pairs) -> None:
          diagnose_mapq.decompose(terms, stats), t0)
 
 
+# ----------------------------------------------------------------------
+# sanitizers: every kernel instantiation under compute-sanitizer and under
+# the on-card fence, poison and schedule checks; torch's stream sanitizer
+# over the main path
+# ----------------------------------------------------------------------
+
+# The thread forms of the kernels' launch tables as csrc/*.cu name them
+# (tests/test_torch_sanitize.py reads each table back from its source).
+# sw_banded and sw_banded16: corridor class -> (the small call's form,
+# which group 32 asks for, and the large call's, group 8); a form is
+# (lanes a thread, threads a segment, warps a candidate), for sw_banded16
+# (registers of two lanes, threads a segment, warps a candidate)
+SAN_BANDED = {32: ((2, 16, 1), (4, 8, 1)), 64: ((2, 32, 1), (8, 8, 1)),
+              96: ((3, 32, 1), (6, 16, 1)), 128: ((4, 32, 1), (8, 16, 1)),
+              256: ((8, 32, 1), (8, 32, 1)),
+              512: ((4, 32, 4), (16, 32, 1)), 768: ((3, 32, 8), (12, 32, 2)),
+              1024: ((8, 32, 4), (16, 32, 2)),
+              2048: ((8, 32, 8), (16, 32, 4)),
+              4096: ((16, 32, 8), (16, 32, 8))}
+SAN_BANDED16 = {32: ((1, 16, 1), (2, 8, 1)), 64: ((1, 32, 1), (4, 8, 1)),
+                96: ((2, 32, 1), (3, 16, 1)), 128: ((2, 32, 1),) * 2,
+                256: ((4, 32, 1),) * 2, 512: ((8, 32, 1),) * 2,
+                768: ((6, 32, 2),) * 2, 1024: ((8, 32, 2),) * 2,
+                2048: ((8, 32, 4),) * 2, 4096: ((8, 32, 8),) * 2}
+# sw_banded_packed: group -> (lanes a thread, threads a candidate)
+SAN_PACKED = {8: (8, 8), 16: (4, 16)}
+# sw_batch: group (threads a candidate) -> (the longest read a form takes,
+# its rows a thread) in the order of its table; the last form of 32
+# threads takes every read to the kernel's 32 x 32 rows
+SAN_BATCH = {8: ((32, 4), (56, 7), (80, 10), (104, 13)),
+             32: ((128, 4), (256, 8), (512, 16), (768, 24), (1024, 32))}
+SAN_SCORINGS = {"byte": SW_KW, "mask": WIDE_SCORES}
+SAN_TEXT = 20_000          # bases of the sets' text, a multiple of 4
+SAN_READ = 151             # the banded sets' read matrix width
+SAN_PROBE = dict(n=300, K=3)
+SANITIZER_TOOLS = ("memcheck", "racecheck", "synccheck", "initcheck")
+SANITIZE_OK = "SANITIZE-DRIVE-OK"
+
+
+def sanitize_launches() -> list:
+    """One launch per instantiation of the five kernels, as dicts of
+    ``kernel``, ``form`` (the template arguments), ``group`` (the
+    ``_plan_kernel`` form it asks for), ``scoring`` (byte or mask) and the
+    corridor class ``edge`` or the longest read ``rows``; the probe's by
+    ``unroll`` and ``probe_form``."""
+    from ema_tpu_torch.ops import probe
+    from ema_tpu_torch.ops.sw import MAX_READ
+
+    out = []
+    for kernel, table, scorings in (
+            ("sw_banded", SAN_BANDED, ("byte", "mask")),
+            ("sw_banded16", SAN_BANDED16, ("byte",))):
+        seen = set()
+        for edge, forms in table.items():
+            for group, form in zip((32, 8), forms):
+                if form not in seen:
+                    seen.add(form)
+                    out += [dict(kernel=kernel, form=form, group=group,
+                                 edge=edge, scoring=s) for s in scorings]
+    for group, form in SAN_PACKED.items():
+        out.append(dict(kernel="sw_banded_packed", form=form, group=group,
+                        edge=64, scoring="byte"))
+    for group, forms in SAN_BATCH.items():
+        for rows, per_thread in forms:
+            out += [dict(kernel="sw_batch", form=(per_thread, group),
+                         group=group, rows=min(rows, MAX_READ), scoring=s)
+                    for s in ("byte", "mask")]
+    for unroll in probe.UNROLLS:
+        out += [dict(kernel="alu_probe", form=(unroll, probe.FORMS.index(f)),
+                     unroll=unroll, probe_form=f) for f in probe.FORMS]
+    return out
+
+
+def _san_text(rng) -> np.ndarray:
+    text = rng.integers(0, 4, SAN_TEXT).astype(np.uint8)
+    text[9000:9024] = 4                                # a run of N
+    return text
+
+
+def _zigzag_read(rng, text, p, rl, step=20) -> np.ndarray:
+    """``rl`` bases of ``text`` from ``p`` with a deletion, then an
+    insertion, every ``step`` bases: the alignment's diagonal moves from
+    lane k to k + 1 and back, by a horizontal gap and a vertical one."""
+    out, j = [], p
+    for a in range(rl):
+        if a and a % step == 0:
+            if (a // step) % 2:
+                j += 1                                   # deletion
+            else:
+                out.append(int(rng.integers(0, 4)))      # insertion
+                continue
+        out.append(int(text[j]))
+        j += 1
+    return np.array(out[:rl], np.uint8)
+
+
+def _san_candidates(rng, text, N, L, lens, wl, cross=0, lanes=0) -> dict:
+    """gather_score's inputs for N candidates, candidate b owning read b
+    (lengths ``lens``, one more read that no candidate owns) with corridor
+    ``wl[b]``: candidate 0 reads the text's first bases in a window that
+    starts before the text, the last candidate its last bases in a window
+    past its end, candidate 1 has tail rows (a window shorter than its last
+    diagonal), candidate 2 a window narrower than its corridor, the rest
+    full windows.  With ``lanes`` (a banded form's lanes a candidate), the
+    last window starts ``lanes`` plus half the read before the text's end,
+    so that the base entering the last lane, loaded a period ahead, reaches
+    the text's last base and the column past it halfway down the read.
+    With ``cross`` (the lanes of one warp of a several-warp form),
+    candidate 1's read zigzags (``_zigzag_read``) between lanes
+    ``cross - 1`` and ``cross``, so that its alignment passes from warp 0
+    to warp 1 and back through shared memory every 20 rows."""
+    n = text.shape[0]
+    oriented, pos = _reads_from_text(rng, text, N + 1, L, lens)
+    rl = lens[:N].astype(np.int64)
+    pos[0] = 0
+    pos[N - 1] = n - rl[N - 1]
+    for b in (0, N - 1):
+        oriented[b] = 4
+        oriented[b, :rl[b]] = text[pos[b]:pos[b] + rl[b]]
+        oriented[b, rl[b] // 2] ^= 1 if rl[b] > 4 else 0
+    wl = wl.astype(np.int64)
+    win_lo = pos[:N] - rng.integers(0, 16, N)
+    win_len = rl + wl - 1 + rng.integers(0, 24, N)
+    win_lo[0] = -(wl[0] // 2 + 7)
+    win_len[0] = rl[0] + wl[0] + 40
+    win_lo[N - 1] = (n - lanes - rl[N - 1] // 2 if lanes
+                     else n - rl[N - 1] - 9)
+    win_len[N - 1] = rl[N - 1] + wl[N - 1] + 30
+    if N > 2:
+        win_len[1] = rl[1] + wl[1] // 2
+    if N > 3:
+        win_len[2] = max(int(wl[2]) // 3, 1)
+    if cross:
+        # the read's first base at lane cross - 1 (a lane k aligns read
+        # base i with window column i + k)
+        oriented[1] = 4
+        oriented[1, :rl[1]] = _zigzag_read(rng, text, pos[1], rl[1])
+        win_lo[1] = pos[1] - (cross - 1)
+    return dict(text=text, oriented=oriented, olens=lens.astype(np.int32),
+                owners=np.arange(N, dtype=np.int32),
+                win_lo=win_lo.astype(np.int64),
+                win_len=np.maximum(win_len, 1).astype(np.int32),
+                wl=wl.astype(np.int32))
+
+
+def _san_count(form) -> int:
+    """Candidates of an SW form's set: a part-warp form takes one warp of
+    segments and one segment of the next (the others stay past N for its
+    shuffles), any other three (a block's fourth warp, or a several-warp
+    block, leaves at once)."""
+    segw = form[1]
+    return 32 // segw + 1 if segw < 32 else 3
+
+
+def sanitize_inputs(spec, rng) -> dict:
+    """The inputs of one launch of ``sanitize_launches``, numpy arrays
+    (the probe's: ``x``)."""
+    if spec["kernel"] == "alu_probe":
+        return dict(x=rng.integers(-(1 << 31), 1 << 31, SAN_PROBE["n"],
+                                   dtype=np.int64).astype(np.int32))
+    text = _san_text(rng)
+    N = _san_count(spec["form"])
+    if spec["kernel"] == "sw_batch":
+        L = spec["rows"]
+        lens = rng.integers(1, L + 1, N + 1).astype(np.int32)
+        lens[0] = L
+        return _san_candidates(rng, text, N, L, lens,
+                               rng.integers(1, 49, N))
+    edges = (0,) + tuple(SAN_BANDED)
+    lo = (1 if spec["kernel"] == "sw_banded_packed"
+          else edges[edges.index(spec["edge"]) - 1] + 1)
+    wl = rng.integers(lo, spec["edge"] + 1, N)
+    wl[0] = spec["edge"]
+    lens = rng.integers(1, SAN_READ + 1, N + 1).astype(np.int32)
+    lens[0] = SAN_READ
+    lens[1] |= 1
+    per_lane = 2 if spec["kernel"] == "sw_banded16" else 1
+    lanes = per_lane * int(np.prod(spec["form"]))
+    wl[N - 1] = spec["edge"]
+    lens[N - 1] = min(SAN_READ, lanes)
+    cross = 0
+    if len(spec["form"]) == 3 and spec["form"][2] > 1:
+        # several warps: a read of SAN_READ bases that crosses from warp 0
+        # to warp 1 at the widest corridor of the class
+        cross = per_lane * spec["form"][0] * 32
+        wl[1] = spec["edge"]
+        lens[1] = SAN_READ
+    return _san_candidates(rng, text, N, SAN_READ, lens, wl, cross, lanes)
+
+
+def sanitize_sorted_inputs(rng) -> dict:
+    """A call of 300 corridors to 32 lanes and one of 4096 through
+    gather_score: sorting pays (ops/sw.SORT_PAYS_SLOTS), so two class
+    launches read the permutation."""
+    text = _san_text(rng)
+    N = 301
+    lens = rng.integers(1, SAN_READ + 1, N + 1).astype(np.int32)
+    wl = rng.integers(1, 33, N)
+    wl[N // 2] = 4096
+    return _san_candidates(rng, text, N, SAN_READ, lens, wl)
+
+
+def _san_plain(spec, c) -> torch.Tensor:
+    """The plain version's output on the inputs ``c`` (CPU tensors)."""
+    from ema_tpu_torch.ops import probe
+    from ema_tpu_torch.ops.sw import (KERNEL_OF, gather_score_by_class_ref,
+                                      gather_score_ref)
+
+    if spec["kernel"] == "alu_probe":
+        ref = (probe.alu_probe_s16x2_ref if spec["probe_form"] == "s16x2"
+               else probe.alu_probe_ref)
+        return ref(c["x"], SAN_PROBE["K"], spec["unroll"])
+    scorer = {v: k for k, v in KERNEL_OF.items()}[spec["kernel"]]
+    fn = gather_score_by_class_ref if spec.get("sorted") else \
+        gather_score_ref
+    return _call(fn, c, scorer, SAN_SCORINGS[spec["scoring"]])
+
+
+def sanitize_sets(seed: int = 13) -> list:
+    """(spec, inputs as CPU tensors, the plain version's output) for every
+    launch of ``sanitize_launches`` and the sorted class call."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    specs = sanitize_launches() + [dict(kernel="sw_banded", form=None,
+                                        group=0, scoring="byte",
+                                        sorted=True)]
+    for spec in specs:
+        arrays = (sanitize_sorted_inputs(rng) if spec.get("sorted")
+                  else sanitize_inputs(spec, rng))
+        c = {k: torch.from_numpy(np.ascontiguousarray(v))
+             for k, v in arrays.items()}
+        sets.append((spec, c, _san_plain(spec, c)))
+    return sets
+
+
+def save_sanitize_sets(path: str) -> list:
+    """``sanitize_sets()`` saved at ``path`` for the sanitize drive; returns
+    their specs."""
+    sets = sanitize_sets()
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(sets, path)
+    return [spec for spec, _, _ in sets]
+
+
+def sanitizer_filters() -> list:
+    """compute-sanitizer's kernel filters: the port's five __global__
+    functions by name, so that torch's own kernels are not instrumented."""
+    from ema_tpu_torch.ops import probe
+    from ema_tpu_torch.ops.sw import KERNEL_SYMBOL
+
+    names = (*KERNEL_SYMBOL.values(), probe.KERNEL_SYMBOL)
+    return [a for name in names for a in ("--kernel-name", f"kns={name}")]
+
+
+def sanitizer_report(text: str, tool: str) -> dict:
+    """What compute-sanitizer's output ``text`` says: ``{"status":
+    "clean" | "errors" | "refused", "errors": n, "line": ...}``, refused
+    where the tool declined the device.  A report without its summary
+    line (a run cut short) raises ValueError."""
+    refused = re.search(r"=+ Error: (Device not supported)", text)
+    if refused:
+        return {"status": "refused", "errors": None,
+                "line": refused.group(1).strip()}
+    if tool == "racecheck":
+        m = re.findall(r"RACECHECK SUMMARY: (\d+) hazards? displayed "
+                       r"\((\d+) errors?, (\d+) warnings?\)", text)
+        n = [int(errors) + int(warnings) for _, errors, warnings in m]
+    else:
+        n = [int(a) for a in re.findall(r"ERROR SUMMARY: (\d+) errors?",
+                                        text)]
+    if len(n) != 1:
+        raise ValueError(f"compute-sanitizer {tool}: {len(n)} summary lines "
+                         f"in its report, not one:\n{text[-2000:]}")
+    return {"status": "clean" if n[0] == 0 else "errors", "errors": n[0],
+            "line": None}
+
+
+def compute_sanitizer() -> str:
+    """The compute-sanitizer beside nvcc; raises where there is none."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for rel in ("bin/compute-sanitizer",
+                "extras/compute-sanitizer/compute-sanitizer"):
+        path = os.path.join(CUDA_HOME or "", rel)
+        if CUDA_HOME and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError(f"compute-sanitizer not found under CUDA_HOME "
+                       f"{CUDA_HOME}")
+
+
+# An allocator for torch.cuda.memory.CUDAPluggableAllocator that fences
+# every allocation: each gets a mapping of its own between two unmapped
+# guard granules, the buffer set against the upper guard (FENCE_SIDE=end,
+# 4-byte aligned) or the lower one (start), and the mapping filled with
+# the byte FENCE_POISON.  A read or a write past either end of a buffer
+# faults; a read of memory that no one wrote returns the poison.  Built by
+# ``build_sanitize_support`` with nvcc, used by the sanitize drive only.
+FENCE_ALLOC_SRC = r"""
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <sys/types.h>
+#include <cstdlib>
+#include <map>
+#include <mutex>
+
+namespace {
+struct Block { CUdeviceptr va, lo; size_t va_size, mapped;
+               CUmemGenericAllocationHandle h; };
+std::mutex mu;
+std::map<void *, Block> blocks;
+
+bool fence_end() {
+    const char *s = getenv("FENCE_SIDE");
+    return !(s && s[0] == 's');
+}
+unsigned char poison() {
+    const char *p = getenv("FENCE_POISON");
+    return p ? (unsigned char)strtol(p, nullptr, 0) : 0xa5;
+}
+}  // namespace
+
+extern "C" {
+void *fence_malloc(ssize_t size, int device, cudaStream_t) {
+    std::lock_guard<std::mutex> g(mu);
+    cudaSetDevice(device);
+    CUmemAllocationProp prop = {};
+    prop.type = CU_MEM_ALLOCATION_TYPE_PINNED;
+    prop.location.type = CU_MEM_LOCATION_TYPE_DEVICE;
+    prop.location.id = device;
+    size_t gran = 0;
+    if (cuMemGetAllocationGranularity(&gran, &prop,
+            CU_MEM_ALLOC_GRANULARITY_MINIMUM) != CUDA_SUCCESS)
+        return nullptr;
+    const size_t want = size > 0 ? (size_t)size : 1;
+    Block b = {};
+    b.mapped = (want + gran - 1) / gran * gran;
+    b.va_size = b.mapped + 2 * gran;
+    if (cuMemAddressReserve(&b.va, b.va_size, gran, 0, 0) != CUDA_SUCCESS)
+        return nullptr;
+    b.lo = b.va + gran;
+    CUmemAccessDesc acc = {};
+    acc.location = prop.location;
+    acc.flags = CU_MEM_ACCESS_FLAGS_PROT_READWRITE;
+    if (cuMemCreate(&b.h, b.mapped, &prop, 0) != CUDA_SUCCESS) {
+        cuMemAddressFree(b.va, b.va_size);
+        return nullptr;
+    }
+    if (cuMemMap(b.lo, b.mapped, 0, b.h, 0) != CUDA_SUCCESS
+            || cuMemSetAccess(b.lo, b.mapped, &acc, 1) != CUDA_SUCCESS
+            || cuMemsetD8(b.lo, poison(), b.mapped) != CUDA_SUCCESS
+            || cuCtxSynchronize() != CUDA_SUCCESS) {
+        cuMemUnmap(b.lo, b.mapped);
+        cuMemRelease(b.h);
+        cuMemAddressFree(b.va, b.va_size);
+        return nullptr;
+    }
+    void *p = (void *)(fence_end() ? b.lo + b.mapped - (want + 3) / 4 * 4
+                                   : b.lo);
+    blocks[p] = b;
+    return p;
+}
+
+void fence_free(void *ptr, ssize_t, int, cudaStream_t) {
+    std::lock_guard<std::mutex> g(mu);
+    auto it = blocks.find(ptr);
+    if (it == blocks.end()) return;
+    const Block b = it->second;
+    blocks.erase(it);
+    cuCtxSynchronize();          // no queued work may touch it any more
+    cuMemUnmap(b.lo, b.mapped);
+    cuMemRelease(b.h);
+    cuMemAddressFree(b.va, b.va_size);
+}
+}  // extern "C"
+"""
+# the nvcc define that builds the SW kernels' schedule fuzzing in
+# (csrc/sw_common.cuh: sw::fuzz_delay)
+FUZZ_DEFINE = "-DSW_SCHEDULE_FUZZ"
+SW_KERNELS = ("sw_banded", "sw_banded16", "sw_banded_packed", "sw_batch")
+
+
+def fence_library() -> str:
+    return os.path.join(ROOT, "build", "ema_tpu_torch", "libfence_alloc.so")
+
+
+def build_sanitize_support() -> None:
+    """What the sanitize drives need beyond the kernels, built at once:
+    the fence allocator (nvcc, linked against the driver API) and the four
+    SW kernels with FUZZ_DEFINE (their own libraries: the flags are in
+    their names' hash).  Raises if a build fails."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from ema_tpu_torch.ops import _build
+
+    so = fence_library()
+    os.makedirs(os.path.dirname(so), exist_ok=True)
+    src = so[:-3] + ".cu"
+    with open(src, "w") as f:
+        f.write(FENCE_ALLOC_SRC)
+    fence = subprocess.Popen(
+        [os.path.join(CUDA_HOME, "bin", "nvcc"), "-std=c++17", "-O2",
+         "-shared", "-Xcompiler", "-fPIC", src, "-o", so,
+         "-L" + os.path.join(CUDA_HOME, "lib64", "stubs"), "-lcuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    flags = _build.NVCC_FLAGS
+    try:
+        _build.NVCC_FLAGS = flags + (FUZZ_DEFINE,)
+        _build._compile(SW_KERNELS)
+    finally:
+        _build.NVCC_FLAGS = flags
+    out, _ = fence.communicate()
+    check(fence.returncode == 0, f"nvcc failed for the fence allocator:\n"
+                                 f"{out}")
+
+
+def sanitize_drive(path: str, fence: str = "", poison: int = 0xa5,
+                   fuzz: bool = False) -> int:
+    """Run every launch of the sets saved at ``path`` on the card and hold
+    each to its plain version; the process the sanitizers watch.
+    ``fence`` (end or start) installs the fence allocator with ``poison``;
+    ``fuzz`` loads the SW kernels built with FUZZ_DEFINE.  Prints
+    SANITIZE_OK and the launches by kernel.  Where ``path`` is missing, it
+    is made first (``save_sanitize_sets``), on the CPU."""
+    refuse_reference_imports()
+    if not os.path.exists(path):
+        save_sanitize_sets(path)
+    if fence:
+        if not os.path.exists(fence_library()):
+            build_sanitize_support()
+        os.environ.update(FENCE_SIDE=fence, FENCE_POISON=str(poison))
+        alloc = torch.cuda.memory.CUDAPluggableAllocator(
+            fence_library(), "fence_malloc", "fence_free")
+        torch.cuda.memory.change_current_allocator(alloc)
+    from ema_tpu_torch.ops import _build, probe
+    from ema_tpu_torch.ops.sw import (KERNEL_OF, LAUNCHES, _plan_kernel,
+                                      gather_score, reset_counts)
+
+    if fuzz:
+        _build.NVCC_FLAGS = _build.NVCC_FLAGS + (FUZZ_DEFINE,)
+    dev = torch.device("cuda")
+    sets = torch.load(path)
+    scorer_of = {v: k for k, v in KERNEL_OF.items()}
+    reset_counts()
+    probe.LAUNCHES.reset()
+    for spec, c, want in sets:
+        # the last line before a fault names the launch that made it
+        print(f"launch {json.dumps(spec)}", flush=True)
+        if spec["kernel"] == "alu_probe":
+            got = probe.alu_probe(c["x"].to(dev), SAN_PROBE["K"],
+                                  spec["unroll"], spec["probe_form"])
+        else:
+            c = {k: v.to(dev) for k, v in c.items()}
+            scoring = SAN_SCORINGS[spec["scoring"]]
+            scorer = scorer_of[spec["kernel"]]
+            if spec.get("sorted"):
+                got = _call(gather_score, c, scorer, scoring)
+            else:
+                got, launch = _plan_kernel(
+                    c["text"], c["oriented"], c["olens"], c["owners"],
+                    c["win_lo"], c["win_len"], c["wl"], scorer=scorer,
+                    group=spec["group"], **scoring)
+                launch()
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(), want),
+              f"{spec} differs from the plain version under the sanitize "
+              f"drive (fence {fence or 'off'}, fuzz {fuzz})")
+    launches = {k: c.value for k, c in LAUNCHES.items()}
+    launches["alu_probe"] = probe.LAUNCHES.value
+    print(f"{SANITIZE_OK} {json.dumps(launches)}", flush=True)
+    return 0
+
+
+def sanitizer_refusal_context(cs: str) -> str:
+    """What a refusal of the card can be read against: the tool's version,
+    the card's driver, the toolkit and the kernel the machine reports (a
+    sandboxed kernel may not pass the tools' debugger interface on)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    def line(cmd, last=False):
+        if shutil.which(cmd[0]) is None:
+            return "(not found)"
+        out = subprocess.run(cmd, capture_output=True, text=True).stdout
+        lines = out.strip().splitlines() or ["(no output)"]
+        return lines[-1] if last else lines[0]
+
+    u = os.uname()
+    driver = line(["nvidia-smi", "--query-gpu=driver_version",
+                   "--format=csv,noheader"])
+    nvcc = line([os.path.join(CUDA_HOME, "bin", "nvcc"), "--version"],
+                last=True)
+    return (f"compute-sanitizer {line([cs, '--version'], last=True)}; "
+            f"driver {driver}; nvcc {nvcc}; torch CUDA {torch.version.cuda}"
+            f"; kernel {u.sysname} {u.nodename} {u.release}; dmesg "
+            f"{line(['dmesg'])}")
+
+
+def _drive_cmd(path: str, *args) -> list:
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+            "--sanitize-drive", path, *args]
+
+
+def phase_sanitize(dev, card: str) -> dict:
+    """Every instantiation of the five kernels (``sanitize_launches``: 86,
+    and one sorted class call) in a subprocess that compute-sanitizer
+    watches, once per tool (memcheck, racecheck, synccheck, initcheck;
+    only the port's kernels instrumented, no leak check: torch's caching
+    allocator keeps its blocks to the end), and under three checks on the
+    card itself: every allocation fenced by unmapped memory on its upper
+    side with its bytes poisoned 0xa5, then on its lower side poisoned
+    0x5a (an access past either end of any buffer faults, a read of
+    unwritten memory changes the output), and the SW kernels built with
+    schedule fuzzing (a warp sleeps at random at each hand-over through
+    shared memory).  Each run must hold every launch bit-exact to its
+    plain version.  A tool that reports an error, or a report without its
+    summary, fails the phase; a tool that declines the card (``Device not
+    supported``) is reported as refused, and the card's checks stand for
+    it.  Returns each kernel's ``sanitized`` record."""
+    cs = compute_sanitizer()
+    t0 = time.time()
+    path = os.path.join(ROOT, "build", "ema_tpu_torch", "sanitize_sets.pt")
+    specs = save_sanitize_sets(path)
+    per_kernel = {k: sum(s["kernel"] == k and not s.get("sorted")
+                         for s in specs) for k in KERNELS}
+    log(f"sanitize sets: {len(specs) - 1} instantiations "
+        f"({json.dumps(per_kernel)}) and one sorted class call, with their "
+        f"plain outputs, in {time.time() - t0} s")
+    env = dict(os.environ, PYTORCH_NO_CUDA_MEMORY_CACHING="1")
+    runs = {tool: [cs, "--tool", tool, "--error-exitcode", "1",
+                   *sanitizer_filters(), *_drive_cmd(path)]
+            for tool in SANITIZER_TOOLS}
+    runs["fence_end"] = _drive_cmd(path, "--fence", "end", "--poison",
+                                   "0xa5")
+    runs["fence_start"] = _drive_cmd(path, "--fence", "start", "--poison",
+                                     "0x5a")
+    runs["fuzz"] = _drive_cmd(path, "--fuzz")
+    t0 = time.time()
+    logs = {name: os.path.join(os.path.dirname(path), f"sanitize_{name}.log")
+            for name in runs}
+    procs, ended = {}, {}
+    try:
+        for name, cmd in runs.items():
+            with open(logs[name], "w") as f:
+                procs[name] = subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=f,
+                    stderr=subprocess.STDOUT, text=True)
+        while len(ended) < len(procs):
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.time() - t0
+            check(time.time() - t0 < 600, f"sanitize runs still going after "
+                                          f"600 s: {set(procs) - set(ended)}")
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    results, failed = {}, []
+    for name, proc in procs.items():
+        secs = ended[name]
+        with open(logs[name]) as f:
+            out = f.read()
+        ok = re.search(SANITIZE_OK + r" (\{.*\})", out)
+        launched = json.loads(ok.group(1)) if ok else None
+        whole = (ok is not None and proc.returncode == 0
+                 and launched["alu_probe"] == per_kernel["alu_probe"]
+                 and sum(launched.values()) == len(specs) + 1)
+        if name in SANITIZER_TOOLS:
+            rep = sanitizer_report(out, name)
+            if rep["status"] == "refused":
+                results[name] = "refused: " + rep["line"]
+            elif rep["status"] == "clean" and whole:
+                results[name] = "0 errors"
+            else:
+                results[name] = f"{rep['errors']} errors"
+                failed.append(name)
+        elif whole:
+            results[name] = "bit-exact"
+        else:
+            results[name] = f"failed (exit {proc.returncode})"
+            failed.append(name)
+        log(f"sanitize {name}: {results[name]} over {len(specs) - 1} "
+            f"instantiations and the sorted call in {secs} s, launches "
+            f"{launched}; card: {card}")
+        if name in failed:
+            log(f"sanitize {name} output (its end):\n{out[-3000:]}")
+    log(f"sanitize: all runs in {time.time() - t0} s: {json.dumps(results)}")
+    if any(r.startswith("refused") for r in results.values()):
+        log("sanitize refused: " + sanitizer_refusal_context(cs))
+    check(not failed, f"sanitize: {', '.join(failed)} failed")
+    return {k: {"instantiations": per_kernel[k], **results}
+            for k in KERNELS}
+
+
+STREAM_SANITIZE_OK = "STREAM-SANITIZE-DRIVE-OK"
+STREAM_PAIRS = 8192          # the main-path pass under the stream sanitizer
+
+
+def _sanitize_every_thread(mode) -> dict:
+    """Enter torch's stream-sanitizer dispatch ``mode`` in every thread
+    started from here on (a dispatch mode is thread-local, and the
+    Aligner's chunk workers are threads), and serialise its bookkeeping of
+    each launch, which assumes one thread.  Returns the count of launches
+    it checks by thread (a pool's workers under the pool's name)."""
+    lock = threading.Lock()
+    handle = mode.event_handler._handle_kernel_launch
+    checked = {}
+
+    def handle_locked(*args, **kwargs):
+        name = threading.current_thread().name.split("_")[0]
+        with lock:
+            checked[name] = checked.get(name, 0) + 1
+            return handle(*args, **kwargs)
+
+    mode.event_handler._handle_kernel_launch = handle_locked
+    run = threading.Thread.run
+
+    def run_sanitized(self):
+        with mode:
+            run(self)
+
+    threading.Thread.run = run_sanitized
+    return checked
+
+
+def stream_sanitize_drive() -> int:
+    """The main path under torch's stream sanitizer (TORCH_CUDA_SANITIZER
+    set before torch was imported): one pass of a reduced bench world
+    (STREAM_PAIRS pairs in chunks of 2,048, 4 in flight, device EM on its
+    side stream), one sharded candidate step at (data, cand) = (2, 2) over
+    ["cuda:0"] * 4, and one pass of the 2-cell Aligner
+    held to the first pass's records.  Every kernel launch of the port is
+    handed to the sanitizer as the reads and the write it makes on its
+    stream (ops/sw.LAUNCH_OBSERVERS).  Prints STREAM_SANITIZE_OK and the
+    launches by stream; a data race raises CUDASanitizerErrors."""
+    import torch.cuda._sanitizer as csan
+
+    check(os.environ.get("TORCH_CUDA_SANITIZER") and
+          csan.cuda_sanitizer.enabled,
+          "torch's stream sanitizer is not enabled")
+    refuse_reference_imports()
+    from ema_tpu_torch import config
+    from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.core.pipeline import Aligner
+    from ema_tpu_torch.index import build_index
+    from ema_tpu_torch.index.fm import FMIndexArrays
+    from ema_tpu_torch.ops import sw
+    from ema_tpu_torch.parallel import make_mesh, make_sharded_candidate_step
+    from ema_tpu_torch.tools.bench import bench_world as world
+
+    mode = csan.cuda_sanitizer.dispatch
+    checked = _sanitize_every_thread(mode)
+    handler = mode.event_handler
+    seen = []
+
+    def observe(kernel, stream, reads, writes):
+        """A ctypes launch as the sanitizer's kernel launch: its reads and
+        its write on ``stream``; also which buffers another stream wrote
+        last (ordered before this launch, or the sanitizer raises)."""
+        w = {t.data_ptr() for t in writes}
+        r = {t.data_ptr() for t in reads} - w
+        names = {t.data_ptr(): [f"{kernel} buffer {k}"]
+                 for k, t in enumerate((*reads, *writes))}
+        last = [handler.tensors_accessed.accesses.get(p) for p in r]
+        crossed = sum(1 for a in last if a is not None and a.write
+                      is not None and a.write.stream != stream)
+        errors = handler._handle_kernel_launch(
+            stream, r, w, w, f"{kernel} (ctypes launch)", names)
+        seen.append((kernel, stream, threading.current_thread().name,
+                     crossed))
+        if errors:
+            for e in errors:
+                print(e, file=sys.stderr)
+            raise csan.CUDASanitizerErrors(errors)
+
+    sw.LAUNCH_OBSERVERS.append(observe)
+    dev = torch.device("cuda:0")
+    genome, pairs, _, _ = world(pairs=10_000)
+    idx = build_index({"chr1": genome})
+    pairs = tuple(col[:STREAM_PAIRS] for col in pairs)
+    cfg = config.RunConfig(batch_size=2048, inflight_chunks=4,
+                           device_em=True)
+    runs = {}
+    t0 = time.time()
+    lines = Aligner(idx, cfg, device=dev).align_batch_to_sam(
+        ReadBatch.from_pairs(*pairs))
+    torch.cuda.synchronize()
+    runs["pass"] = (len(seen), time.time() - t0)
+    check(len(lines) == 2 * len(pairs[0]), f"{len(lines)} records")
+
+    fm = FMIndexArrays.from_index(idx, dev)
+    text = torch.from_numpy(idx.text).to(dev)
+    reads, lens = _step_reads(pairs, dev, n_rows=1024)
+    n0, t0 = len(seen), time.time()
+    step = make_sharded_candidate_step(make_mesh(2, 2, [str(dev)] * 4), fm,
+                                       text, **STEP_STATIC)
+    out = step(reads, lens)
+    torch.cuda.synchronize()
+    # phase_mesh holds the step bit-exact against one device
+    check(int(out.n_aligned) > 0, "the 2 x 2 step aligned no read")
+    runs["mesh 2x2"] = (len(seen) - n0, time.time() - t0)
+
+    n0, t0 = len(seen), time.time()
+    cells = Aligner(idx, cfg, device=dev, devices=[str(dev)] * 2)
+    two = cells.align_batch_to_sam(ReadBatch.from_pairs(*pairs))
+    torch.cuda.synchronize()
+    check(two == lines, "the 2-cell Aligner's records differ from the "
+                        "one-device pass's")
+    runs["2-cell Aligner"] = (len(seen) - n0, time.time() - t0)
+    launched = sum(c.value for c in sw.LAUNCHES.values())
+    check(launched == len(seen) and launched > 0,
+          f"{launched} kernel launches, {len(seen)} handed to the sanitizer")
+    streams = {}
+    for kernel, stream, thread, crossed in seen:
+        key = f"{kernel} on stream {stream}"
+        n, c, threads = streams.get(key, (0, 0, set()))
+        streams[key] = (n + 1, c + crossed, threads | {thread.split("_")[0]})
+    print(STREAM_SANITIZE_OK + " " + json.dumps({
+        "runs": runs, "checked by thread": checked,
+        "launches": {k: {"launches": n, "buffers written last by another "
+                         "stream": c, "threads": sorted(t)}
+                     for k, (n, c, t) in streams.items()}}), flush=True)
+    return 0
+
+
+def phase_stream_sanitize(dev, card: str) -> None:
+    """``stream_sanitize_drive`` in a subprocess with TORCH_CUDA_SANITIZER
+    set before torch is imported, behind the import finder: any data race
+    the sanitizer reports fails the phase."""
+    t0 = time.time()
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--stream-sanitize-drive"], cwd=ROOT, capture_output=True,
+        text=True, timeout=600,
+        env=dict(os.environ, TORCH_CUDA_SANITIZER="1"))
+    out = r.stdout + r.stderr
+    with open(os.path.join(ROOT, "build", "ema_tpu_torch",
+                           "stream_sanitize.log"), "w") as f:
+        f.write(out)
+    ok = re.search(STREAM_SANITIZE_OK + r" (\{.*\})", r.stdout)
+    check(r.returncode == 0 and ok and "CSAN detected" not in out,
+          f"stream sanitizer (exit {r.returncode}):\n{out[-6000:]}")
+    report = json.loads(ok.group(1))
+    for name, (n, secs) in report["runs"].items():
+        log(f"stream sanitize [{name}]: 0 races over {n} kernel launches "
+            f"and every torch operation, {secs} s under the sanitizer; "
+            f"card: {card}")
+    log(f"stream sanitize: launches checked (torch's and the port's) by "
+        f"thread: {json.dumps(report['checked by thread'])}")
+    for key, st in report["launches"].items():
+        log(f"stream sanitize: {key}: {json.dumps(st)}")
+    log(f"stream sanitize: {time.time() - t0} s in all")
+
+
 def ptxas_functions(text: str) -> list:
     """(kernel, registers, spill-store bytes) of each entry function that
     ``ptxas -v`` reports, the kernel named by its template arguments
@@ -2618,11 +3395,29 @@ def ptxas_functions(text: str) -> list:
     return [tuple(f) for f in out]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sanitize-drive", metavar="SETS",
+                    help="run the launches saved at SETS (phase_sanitize's "
+                         "subprocess; SETS is made first where it is "
+                         "missing)")
+    ap.add_argument("--fence", choices=("end", "start"), default="")
+    ap.add_argument("--poison", type=lambda v: int(v, 0), default=0xa5)
+    ap.add_argument("--fuzz", action="store_true")
+    ap.add_argument("--stream-sanitize-drive", action="store_true",
+                    help="phase_stream_sanitize's subprocess")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke run needs a CUDA card\n")
         return 1
+    if args.sanitize_drive:
+        return sanitize_drive(args.sanitize_drive, args.fence, args.poison,
+                              args.fuzz)
+    if args.stream_sanitize_drive:
+        return stream_sanitize_drive()
     refuse_reference_imports()
     from ema_tpu_torch import native
     from ema_tpu_torch.ops import _build
@@ -2638,6 +3433,14 @@ def main() -> int:
     log(f"native library {native._so_path().name} built/loaded with g++ in "
         f"{time.time() - t0} s")
     t0 = time.time()
+    # the fence allocator and the schedule-fuzzed SW kernels of
+    # phase_sanitize, built beside the kernels in a process of their own
+    san_build = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; "
+         "chip_smoke.refuse_reference_imports(); "
+         "chip_smoke.build_sanitize_support()"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    atexit.register(lambda: san_build.poll() is None and san_build.kill())
     _build.load_all()
     log(f"kernels {', '.join(KERNELS)} built/loaded in {time.time() - t0} s")
     for name in KERNELS:
@@ -2658,8 +3461,18 @@ def main() -> int:
         log(f"phase {fn.__name__}: {time.time() - t0} s")
         return out
 
+    def sanitize_support():
+        out, _ = san_build.communicate(timeout=600)
+        check(san_build.returncode == 0,
+              f"building the sanitize checks failed:\n{out[-4000:]}")
+        log(f"fence allocator and schedule-fuzzed SW kernels ready "
+            f"{time.time() - t0} s after the kernels' build began (built "
+            f"beside it)")
+
     from ema_tpu_torch.index import build_index
     kstats = phase(phase_kernel, dev, card)
+    sanitize_support()
+    sanitized = phase(phase_sanitize, dev, card)
     t0 = time.time()
     genome, pairs, truth, bc_strs = bench_world()
     idx = build_index({"chr1": genome})
@@ -2683,6 +3496,7 @@ def main() -> int:
     phase(phase_mesh, dev, card, idx, pairs, default_lines)
     phase(phase_multihost, dev, card, idx, genome, pairs, bc_strs, x_body)
     phase(phase_tools, dev, card, idx, pairs)
+    phase(phase_stream_sanitize, dev, card)
 
     torch.cuda.synchronize()
     loaded = reference_modules_loaded()
@@ -2707,7 +3521,8 @@ def main() -> int:
         "bound_by": kstats[name]["bound_by"],
         # no PyTorch call computes a banded affine-gap Smith-Waterman with
         # these tie rules, or the probe's chains
-        "library_ms": None}
+        "library_ms": None,
+        "sanitized": sanitized[name]}
         for name, (_, source, replaces) in KERNELS.items()]}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -8,6 +8,13 @@ file that carries the pid and an ``os.replace``: processes that build at
 once each write their own file and the last rename wins with identical
 bytes.  It is built with ``-march=native``, so a library is never carried
 from one machine to another.
+
+``EMA_TPU_NATIVE_SANITIZE=thread|address`` adds ``-fsanitize=<mode> -g
+-fno-omit-frame-pointer`` to the flags, so the instrumented library has a
+file of its own and never replaces the fast one; the variable is read
+where the library's path is computed.  tests/test_torch_native_tsan.py
+runs every thread pool of the library under the thread mode, with
+libtsan preloaded.
 """
 
 from __future__ import annotations
@@ -27,20 +34,35 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ema_tpu_torch"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
              "-funroll-loops")
 
+SANITIZE_MODES = ("thread", "address")
+
 _lock = threading.Lock()
 _lib = None
+_lib_path = None
+
+
+def gxx_flags() -> tuple:
+    """``GXX_FLAGS`` and, under ``EMA_TPU_NATIVE_SANITIZE=thread`` or
+    ``address``, the sanitizer's; any other non-empty value raises."""
+    mode = os.environ.get("EMA_TPU_NATIVE_SANITIZE", "")
+    if not mode:
+        return GXX_FLAGS
+    if mode not in SANITIZE_MODES:
+        raise ValueError(f"EMA_TPU_NATIVE_SANITIZE={mode!r}: one of "
+                         f"{', '.join(SANITIZE_MODES)}, or unset")
+    return GXX_FLAGS + (f"-fsanitize={mode}", "-g", "-fno-omit-frame-pointer")
 
 
 def _so_path() -> Path:
     h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(" ".join(gxx_flags()).encode())
     return BUILD_DIR / f"libema_native_{h.hexdigest()[:16]}.so"
 
 
 def _build(so: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *GXX_FLAGS, str(SRC), "-o", str(tmp)],
+    proc = subprocess.run(["g++", *gxx_flags(), str(SRC), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"g++ failed for {SRC.name} (exit "
@@ -49,7 +71,7 @@ def _build(so: Path) -> None:
 
 
 def get_lib() -> ctypes.CDLL:
-    global _lib
+    global _lib, _lib_path
     if _lib is not None:
         return _lib
     with _lock:
@@ -59,6 +81,7 @@ def get_lib() -> ctypes.CDLL:
         if not so.exists():
             _build(so)
         lib = ctypes.CDLL(str(so))
+        _lib_path = so
 
         lib.sais_u8.restype = None
         lib.sais_u8.argtypes = [
@@ -326,7 +349,7 @@ def lib_fingerprint() -> str:
     if _fingerprint is None:
         import zlib
         get_lib()  # ensure the .so exists and is current
-        with open(_so_path(), "rb") as f:  # the file get_lib() loaded
+        with open(_lib_path, "rb") as f:  # the file get_lib() loaded
             _fingerprint = f"{zlib.crc32(f.read()):08x}"
     return _fingerprint
 

@@ -219,6 +219,7 @@ sw_banded_kernel(const uint8_t *__restrict__ text, int64_t text_n,
         // lane 0 of the thread as a selector quad at nibble 0
         const uint32_t sel0 = sel[0] >> (4 * kOff);
         if constexpr (WARPS > 1) {
+            sw::fuzz_delay(i, 0);
             if (lane == 0) {
                 sh_bnd[wc][0] = (uint32_t)Hp[0];
                 sh_bnd[wc][1] = (uint32_t)Fp[0];
@@ -237,6 +238,7 @@ sw_banded_kernel(const uint8_t *__restrict__ text, int64_t text_n,
         int32_t nSH = __shfl_down_sync(kFull, SHp[0], 1, SEGW);
         int32_t nSF = __shfl_down_sync(kFull, SFp[0], 1, SEGW);
         uint32_t nsel = __shfl_down_sync(kFull, sel0, 1, SEGW);
+        if constexpr (WARPS > 1) sw::fuzz_delay(i, 1);
         if (sl == SEGW - 1) {
             if (WARPS > 1 && wc + 1 < WARPS) {
                 nH = (int32_t)sh_bnd[wc + 1][0];
@@ -324,8 +326,10 @@ sw_banded_kernel(const uint8_t *__restrict__ text, int64_t text_n,
         sw::scan_carries<SEGW>(aggP, aggS, sl);
         int32_t cP = NEG, cS = 0;        // what enters lane 0 of the warp
         if constexpr (WARPS > 1) {
+            sw::fuzz_delay(i, 2);
             if (lane == 31) { sh_agg[wc][0] = aggP; sh_agg[wc][1] = aggS; }
             __syncthreads();
+            sw::fuzz_delay(i, 3);
             // lane w < WARPS scans warp w's total, the nearer winning ties
             int32_t wP = lane < WARPS ? sh_agg[lane][0] : NEG;
             int32_t wS = lane < WARPS ? sh_agg[lane][1] : 0;
@@ -375,6 +379,7 @@ sw_banded_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     }
     best = sw::reduce_best<SEGW>(best);
     if constexpr (WARPS > 1) {
+        sw::fuzz_delay(rows + 1, 4);
         if (lane == 0) sh_best[wc] = best;
         __syncthreads();
         if (threadIdx.x != 0) return;

@@ -208,6 +208,7 @@ sw_banded16_kernel(const uint8_t *__restrict__ text, int64_t text_n,
 
     for (int32_t i = 1; i <= rows; ++i) {
         if constexpr (WARPS > 1) {
+            sw::fuzz_delay(i, 0);
             if (lane == 0) {
                 sh_bnd[wc][0] = Hp[0]; sh_bnd[wc][1] = Fp[0];
                 sh_bnd[wc][2] = SHp[0]; sh_bnd[wc][3] = SFp[0];
@@ -235,6 +236,7 @@ sw_banded16_kernel(const uint8_t *__restrict__ text, int64_t text_n,
         uint32_t nSH = __shfl_down_sync(kFull, SHp[0], 1, SEGW);
         uint32_t nSF = __shfl_down_sync(kFull, SFp[0], 1, SEGW);
         uint32_t nS = __shfl_down_sync(kFull, S[0], 1, SEGW);
+        if constexpr (WARPS > 1) sw::fuzz_delay(i, 1);
         if (sl == SEGW - 1) {
             if (WARPS > 1 && wc + 1 < WARPS) {
                 nH = sh_bnd[wc + 1][0]; nF = sh_bnd[wc + 1][1];
@@ -311,8 +313,10 @@ sw_banded16_kernel(const uint8_t *__restrict__ text, int64_t text_n,
         sw::scan_carries<SEGW>(tP, tS, sl);
         int32_t cP = NEG16, cS = 0;       // what enters lane 0 of the warp
         if constexpr (WARPS > 1) {
+            sw::fuzz_delay(i, 2);
             if (lane == 31) { sh_agg[2 * wc] = tP; sh_agg[2 * wc + 1] = tS; }
             __syncthreads();
+            sw::fuzz_delay(i, 3);
             if (sw::warp_carry(sh_agg, wc, cP, cS) && cP > tP) {
                 tP = cP; tS = cS;
             }
@@ -359,6 +363,7 @@ sw_banded16_kernel(const uint8_t *__restrict__ text, int64_t text_n,
     }
     best = sw::reduce_best<SEGW>(best);
     if constexpr (WARPS > 1) {
+        sw::fuzz_delay(rows + 1, 4);
         if (lane == 0) sh_best[wc] = best;
         __syncthreads();
         if (threadIdx.x != 0) return;

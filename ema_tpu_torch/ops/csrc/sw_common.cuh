@@ -101,6 +101,25 @@ __device__ __forceinline__ void scan_carries(int32_t &P, int32_t &S,
     }
 }
 
+// Schedule fuzzing, for chip_smoke.py's race check, which builds the SW
+// kernels a second time with -DSW_SCHEDULE_FUZZ: a warp sleeps a
+// pseudo-random 0 to 4 us (by block, warp, row and site) before each of
+// its hand-overs through shared memory, so that a barrier missing there
+// shows as a wrong result.  Nothing in any other build.
+__device__ __forceinline__ void fuzz_delay(int32_t row, uint32_t site) {
+#ifdef SW_SCHEDULE_FUZZ
+    uint32_t h = blockIdx.x * 0x9e3779b9u ^ (threadIdx.x >> 5) * 0x85ebca6bu
+        ^ (uint32_t)row * 0xc2b2ae35u ^ site * 0x27d4eb2fu;
+    h ^= h >> 16;
+    h *= 0x7feb352du;
+    h ^= h >> 15;
+    if (h & 1u) __nanosleep((h >> 1) & 4095u);
+#else
+    (void)row;
+    (void)site;
+#endif
+}
+
 // Multi-warp candidates: the carry entering warp wc is the join of the
 // warp totals (agg[2w], agg[2w + 1]) for w < wc, farthest first, a nearer
 // warp winning ties (the rule of the shuffle scan, carried across warps

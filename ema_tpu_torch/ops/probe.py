@@ -30,6 +30,8 @@ UNROLLS = (1, 2, 4, 8, 16, 32)       # the unroll counts the kernel takes
 FORMS = ("alu", "dpx", "s16x2")      # the kernel's form argument: 0, 1, 2
 # launches of csrc/alu_probe.cu by ``alu_probe`` (CUDA tensors only)
 LAUNCHES = LaunchCounter()
+# the kernel's __global__ function (ops/sw.KERNEL_SYMBOL for the SW kernels)
+KERNEL_SYMBOL = "alu_probe_kernel"
 
 
 def probe_ops(n_elements: int, K: int, unroll: int) -> int:

@@ -85,6 +85,13 @@ KERNEL_SYMBOL = {"sw_banded": "sw_banded_kernel",
 LAUNCHES = {k: LaunchCounter() for k in KERNEL_OF.values()}
 # gather_score calls per scorer, on any device
 CALLS = {s: LaunchCounter() for s in KERNEL_OF}
+# callables (kernel, stream, tensors read, tensors written) told of every
+# kernel launch once it is queued, by this module and ops/probe.py.  A
+# launch reads and writes its tensors on ``stream``, the calling thread's
+# current stream, which torch's stream sanitizer cannot see for a ctypes
+# launch: chip_smoke.py's stream-sanitizer phase hands each launch to it
+# through one of these.
+LAUNCH_OBSERVERS: list = []
 
 
 # the thread forms that ``_plan_kernel``'s ``group`` may ask of a scorer's
@@ -623,7 +630,10 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
     else:
         launches = [(N, w_hi, group)]
     # the tensors whose pointers the launches carry stay alive with it
-    held = (text, oriented, olens, owners, win_lo, win_len, wl, perm, out)
+    read = (text, oriented, olens, owners, win_lo, win_len, wl)
+    if perm is not None:
+        read += (perm,)
+    held = (read, (out,))
     head = (text.data_ptr(), text.shape[0], oriented.data_ptr(), L,
             olens.data_ptr(), owners.data_ptr(), win_lo.data_ptr(),
             win_len.data_ptr(), wl.data_ptr())
@@ -638,6 +648,8 @@ def _plan_kernel(text, oriented, olens, owners, win_lo, win_len, wl, *,
                     raise RuntimeError(f"{name} kernel launch failed: CUDA "
                                        f"error {rc}")
                 LAUNCHES[name].add()
+                for observe in LAUNCH_OBSERVERS:
+                    observe(name, stream, *_held)
 
     return out, launch
 
