@@ -26,8 +26,12 @@ streaming merge) and ``--shard/--nshards``; a contig-sharded index runs
 on a ``ShardedAligner``.  ``--device`` defaults to ``cuda``, which runs
 the CUDA kernels and exits 1 if there is no card; ``--device cpu`` runs
 their plain PyTorch versions.  ``--profile DIR`` writes a
-torch.profiler trace, EMA_TPU_STAGE_TIMERS=1 publishes the stage timers,
-and EMA_TPU_SEED_IMPL and EMA_TPU_SW_IMPL choose where greedy seeding and
+torch.profiler trace (``DIR/trace.json``) in which each span of the
+stage timers (utils/metrics.Metrics: ``align``, ``batch``, ``chunk``,
+``seed[smem,host]``, ``em.wait``, ...) is a region above the kernels
+it launched.  ``--profile`` and EMA_TPU_STAGE_TIMERS=1 both attach the
+stage timers to the Aligner, whose table the call prints on stderr;
+EMA_TPU_SEED_IMPL and EMA_TPU_SW_IMPL choose where greedy seeding and
 locate run and which SW kernel scores.  ``count``, ``preproc``,
 ``index`` and ``samdiff`` follow ema_tpu/cli.py:171-286 on the port's own
 host modules.
@@ -156,6 +160,7 @@ def _run_coalesced_buckets(aligner, inputs, ns_of, mi_shift, part_path,
     from ema_tpu_torch import io as io_mod
     from ema_tpu_torch.core.batch import ReadBatch
     from ema_tpu_torch.parallel.distrib import sort_sam_lines
+    from ema_tpu_torch.utils.metrics import new_batch_id
 
     todo = [p for p in inputs
             if not (man is not None and man.is_done(p)
@@ -164,10 +169,13 @@ def _run_coalesced_buckets(aligner, inputs, ns_of, mi_shift, part_path,
     i = 0
     while i < len(todo):
         t0 = time.time()
+        bid = new_batch_id()
         group = []
         pairs_n = 0
         while i < len(todo) and (not group or pairs_n < target):
-            rows = io_mod.read_special_rows(todo[i], is_hap, bc_len)
+            with met.stage("bucket.read", batch=bid) as rd:
+                rows = io_mod.read_special_rows(todo[i], is_hap, bc_len)
+                rd.n_items = len(rows[0])
             group.append((todo[i], rows))
             pairs_n += len(rows[0])
             i += 1
@@ -183,15 +191,16 @@ def _run_coalesced_buckets(aligner, inputs, ns_of, mi_shift, part_path,
                 do_bucket(p)
             continue
 
-        ids, bcs, s1, q1, s2, q2 = [], [], [], [], [], []
-        for p, rows in group:
-            ids += rows[0]
-            bcs += rows[1]
-            s1 += rows[2]
-            q1 += rows[3]
-            s2 += rows[4]
-            q2 += rows[5]
-        batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
+        with met.stage("batch.prep", pairs_n, batch=bid):
+            ids, bcs, s1, q1, s2, q2 = [], [], [], [], [], []
+            for p, rows in group:
+                ids += rows[0]
+                bcs += rows[1]
+                s1 += rows[2]
+                q1 += rows[3]
+                s2 += rows[4]
+                q2 += rows[5]
+            batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
 
         counters: dict = {}
 
@@ -206,18 +215,20 @@ def _run_coalesced_buckets(aligner, inputs, ns_of, mi_shift, part_path,
         def sink(bc, glines):
             buf[bc2bucket[bc]].extend(glines)
 
-        with met.stage("align", len(ids)):
-            for _ in aligner.iter_batch_sam(batch, alloc, sink):
+        with met.stage("align", len(ids), batch=bid):
+            for _ in aligner.iter_batch_sam(batch, alloc, sink,
+                                            batch_id=bid):
                 pass
         dt = time.time() - t0
         for p, _ in group:
             body = buf[p]
-            if sort:
-                body = sort_sam_lines(body, chrom_names)
-            pp = part_path(p)
-            with open(pp + ".tmp", "w") as fh:
-                fh.writelines(body)
-            os.replace(pp + ".tmp", pp)
+            with met.stage("part.write", len(body), batch=bid):
+                if sort:
+                    body = sort_sam_lines(body, chrom_names)
+                pp = part_path(p)
+                with open(pp + ".tmp", "w") as fh:
+                    fh.writelines(body)
+                os.replace(pp + ".tmp", pp)
             if man is not None:
                 man.mark_done(p, pp, len(body), dt / len(group))
 
@@ -337,11 +348,12 @@ def _align(rest) -> int:
                                             if a.threads else None),
                            device_em=True if a.device_em else None,
                            nobc=a.nobc)
-    if isinstance(idx, ShardedIndex):
-        aligner = ShardedAligner(idx, cfg, device=device)
-    else:
-        aligner = Aligner(idx, cfg, device=device)
-    if os.environ.get("EMA_TPU_STAGE_TIMERS") == "1":
+    with met.stage("aligner.init"):
+        if isinstance(idx, ShardedIndex):
+            aligner = ShardedAligner(idx, cfg, device=device)
+        else:
+            aligner = Aligner(idx, cfg, device=device)
+    if os.environ.get("EMA_TPU_STAGE_TIMERS") == "1" or a.profile:
         aligner.metrics = met      # publish the host/device split
     header = write_sam_header(idx.names, idx.lengths, rg, __version__,
                               "ema_tpu_torch align " + " ".join(rest))
@@ -350,6 +362,10 @@ def _align(rest) -> int:
     # reference's own output for these platforms
     bc_len = profile.bc_len
     pair_platform = "none" if a.nobc else profile.name
+
+    # -x: each bucket's read, and its part's sort and write
+    read_stage, write_stage = (("bucket.read", "part.write") if a.multi
+                               else ("read_input", "write_output"))
 
     def align_one_input(path_or_pair, out_fh, cloud_base=None) -> int:
         n = 0
@@ -363,24 +379,25 @@ def _align(rest) -> int:
                     out_fh.writelines(lines)
                     n += len(lines)
             return n
-        with met.stage("read_input"):
+        with met.stage(read_stage) as rd:
             if path_or_pair[0] == "special":
                 batch = io_mod.read_special_fastq(path_or_pair[1], is_hap,
                                                   bc_len)
             else:
                 batch = io_mod.read_fastq_pair(
                     path_or_pair[1], path_or_pair[2], pair_platform)
+            rd.n_items = len(batch.ids)
         with met.stage("align", len(batch.ids)):
             lines = aligner.align_batch_to_sam(batch, cloud_base)
-        if a.sort:
-            # -x: per-part sort, so the final pass is a streaming k-way
-            # merge instead of an in-memory global sort
-            lines = sort_sam_lines(lines, idx.names)
-        with met.stage("write_output"):
+        with met.stage(write_stage, len(lines)):
+            if a.sort:
+                # -x: per-part sort, so the final pass is a streaming
+                # k-way merge instead of an in-memory global sort
+                lines = sort_sam_lines(lines, idx.names)
             out_fh.writelines(lines)
         return len(lines)
 
-    with device_trace(a.profile, device):
+    with device_trace(a.profile, device, met):
         if a.multi:
             _align_buckets(a, aligner, idx, header, met, align_one_input,
                            is_hap, bc_len)
@@ -460,14 +477,15 @@ def _align_buckets(a, aligner, idx, header, met, align_one_input, is_hap,
             do_bucket)
     out = open(a.out, "w") if a.out else sys.stdout
     try:
-        if a.sort:
-            # streaming k-way merge of the parts, sorted when written
-            merge_sorted_streams(out, parts, idx.names, header)
-        else:
-            out.write(header)
-            for part in parts:
-                with open(part) as fh:
-                    out.writelines(fh)
+        with met.stage("x.concat"):
+            if a.sort:
+                # streaming k-way merge of the parts, sorted when written
+                merge_sorted_streams(out, parts, idx.names, header)
+            else:
+                out.write(header)
+                for part in parts:
+                    with open(part) as fh:
+                        out.writelines(fh)
     finally:
         if a.out:
             out.close()

@@ -55,6 +55,7 @@ import contextlib
 import dataclasses
 import os
 import threading
+import time
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
@@ -73,6 +74,7 @@ from ema_tpu_torch.index.device import DeviceState, to_device_state
 from ema_tpu_torch.ops.sw import PACKED_MAX_WL, gather_score
 from ema_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
 from ema_tpu_torch.utils.backend import _tune_malloc, resolve_device
+from ema_tpu_torch.utils.metrics import new_batch_id
 
 WINDOW_PAD = 24          # slack around the chain diagonal for the SW window
 MAX_CIGAR_OPS = 64
@@ -287,9 +289,10 @@ class Aligner:
                     tab = None
                     if k > 0:
                         idx = self.index
-                        tab = native.smem_kmer_table(
-                            idx.occ_blocks, idx.counts, idx.primary,
-                            idx.fm_n, k=k)
+                        with self._mst("kmer_table"):
+                            tab = native.smem_kmer_table(
+                                idx.occ_blocks, idx.counts, idx.primary,
+                                idx.fm_n, k=k)
                     self._smem_ktab = tab
         return tab
 
@@ -297,8 +300,8 @@ class Aligner:
     # candidate generation
     # ------------------------------------------------------------------
 
-    def _mst(self, name: str, n_items: int = 0):
-        return (self.metrics.stage(name, n_items) if self.metrics
+    def _mst(self, name: str, n_items: int = 0, **span):
+        return (self.metrics.stage(name, n_items, **span) if self.metrics
                 else contextlib.nullcontext())
 
     def generate_candidates(self, batch: ReadBatch) -> CandidateSet:
@@ -816,7 +819,9 @@ class Aligner:
         return out
 
     def iter_batch_sam(self, batch: ReadBatch, cloud_id_base=None,
-                       group_sink=None) -> Iterator[List[str]]:
+                       group_sink=None, *, batch_id: Optional[int] = None,
+                       pulled: Optional[Dict[int, int]] = None
+                       ) -> Iterator[List[str]]:
         """Full pipeline for one ReadBatch whose barcodes are complete
         (ema_tpu/core/pipeline.py:948-1142).
 
@@ -837,41 +842,64 @@ class Aligner:
         ``group_sink``: optional ``(bc, lines)`` callback; when given,
         each barcode group's lines go to the sink instead of being
         yielded (coalesced -x routes them to per-bucket parts).
+
+        With ``metrics`` set, the call is one ``batch`` span whose id
+        (``batch_id``, or a new one) every span under it carries, and
+        ``pulled`` ({bc: time.time_ns() when the group's last pair was
+        read}, align_stream's) gives each such group a ``stream.group``
+        span that ends when its lines are handed on.
         """
+        if self.metrics is None:
+            pulled = None
+        elif batch_id is None:
+            batch_id = new_batch_id()
+        with self._mst("batch", len(batch.ids), batch=batch_id) as root:
+            yield from self._batch_sam(batch, cloud_id_base, group_sink,
+                                       root, pulled)
+
+    def _batch_sam(self, batch, cloud_id_base, group_sink, root, pulled
+                   ) -> Iterator[List[str]]:
+        """iter_batch_sam's body; ``root`` is its ``batch`` span (None
+        without metrics)."""
         P = len(batch.ids)
         B = max(self.cfg.batch_size, 1)
 
-        # pre-sort pairs by barcode so chunk records are bc-monotone and
-        # every barcode is contiguous across at most adjacent chunks
-        order = np.argsort(batch.bc, kind="stable")
-        if not np.array_equal(order, np.arange(P)):
-            batch = _reorder_batch(batch, order)
-        if not isinstance(batch.seqs, np.ndarray):
-            # object ndarrays: emission fancy-indexes the FULL batch's
-            # read strings once per barcode group
-            batch = dataclasses.replace(
-                batch, seqs=np.asarray(batch.seqs, dtype=object),
-                quals=np.asarray(batch.quals, dtype=object))
+        with self._mst("batch.prep", P):
+            # pre-sort pairs by barcode so chunk records are bc-monotone
+            # and every barcode is contiguous across at most adjacent
+            # chunks
+            order = np.argsort(batch.bc, kind="stable")
+            if not np.array_equal(order, np.arange(P)):
+                batch = _reorder_batch(batch, order)
+            if not isinstance(batch.seqs, np.ndarray):
+                # object ndarrays: emission fancy-indexes the FULL batch's
+                # read strings once per barcode group
+                batch = dataclasses.replace(
+                    batch, seqs=np.asarray(batch.seqs, dtype=object),
+                    quals=np.asarray(batch.quals, dtype=object))
+            pair_bc: Dict[int, int] = {}
+            for b in batch.bc:
+                pair_bc[int(b)] = pair_bc.get(int(b), 0) + 1
 
         def work(s: int):
             e = min(s + B, P)
-            sub = ReadBatch(
-                ids=batch.ids[s:e], bc=batch.bc[s:e],
-                seqs=batch.seqs[2 * s:2 * e], quals=batch.quals[2 * s:2 * e],
-                codes=batch.codes[2 * s:2 * e], lens=batch.lens[2 * s:2 * e])
-            cs = self.generate_candidates(sub)
-            if self.replay_sink is not None:
-                self.replay_sink(sub, cs)
-            recs, idents, part_pool = self.candidates_to_records(sub, cs, s)
-            # bc-sort within the chunk (candidate order interleaves the
-            # forward and reverse orientations); stable, so within one
-            # barcode the chunk-position order is preserved
-            o = np.argsort(recs["bc"], kind="stable")
-            return recs[o], idents[o], part_pool
-
-        pair_bc: Dict[int, int] = {}
-        for b in batch.bc:
-            pair_bc[int(b)] = pair_bc.get(int(b), 0) + 1
+            with self._mst("chunk", e - s, parent=root):
+                sub = ReadBatch(
+                    ids=batch.ids[s:e], bc=batch.bc[s:e],
+                    seqs=batch.seqs[2 * s:2 * e],
+                    quals=batch.quals[2 * s:2 * e],
+                    codes=batch.codes[2 * s:2 * e],
+                    lens=batch.lens[2 * s:2 * e])
+                cs = self.generate_candidates(sub)
+                if self.replay_sink is not None:
+                    self.replay_sink(sub, cs)
+                recs, idents, part_pool = self.candidates_to_records(
+                    sub, cs, s)
+                # bc-sort within the chunk (candidate order interleaves
+                # the forward and reverse orientations); stable, so within
+                # one barcode the chunk-position order is preserved
+                o = np.argsort(recs["bc"], kind="stable")
+                return recs[o], idents[o], part_pool
 
         lines: List[str] = []
         alloc_base = cloud_id_base if callable(cloud_id_base) else None
@@ -910,16 +938,28 @@ class Aligner:
             if end > 0:
                 n_pairs_list = [pair_bc.get(int(bcs[s]), 0)
                                 for s in starts[:-1]]
-                states = groups_mod.sweep_groups_batch(
-                    recs, idents, starts, self.cfg.platform,
-                    apply_opt=self.cfg.apply_density_opt, rng=rng,
-                    n_pairs_list=n_pairs_list)
+                with self._mst("sweep[host]", len(n_pairs_list)):
+                    states = groups_mod.sweep_groups_batch(
+                        recs, idents, starts, self.cfg.platform,
+                        apply_opt=self.cfg.apply_density_opt, rng=rng,
+                        n_pairs_list=n_pairs_list)
             else:
                 states = []
             em_wait = None
             with self._mst("em[device]" if self.cfg.device_em
                            else "em[host]", len(states)):
                 if self.cfg.device_em:
+                    if self.metrics is not None:
+                        # counts: the groups dispatch_em_batch sends to
+                        # the card, and those too deep for it, run natively
+                        depth = [st.cmask.shape[1] for st in states
+                                 if st.needs_em]
+                        deep = sum(c > groups_mod.EM_NATIVE_C for c in depth)
+                        now = time.time_ns()
+                        self.metrics.record("em.groups", now, now,
+                                            len(depth) - deep)
+                        self.metrics.record("em.native_groups", now, now,
+                                            deep)
                     # one padded device call for all EM-gated groups
                     em_wait = dispatch_em_batch(states, self.device,
                                                 self._em_stream)
@@ -931,7 +971,7 @@ class Aligner:
         def finish_and_emit(emit_state) -> None:
             states, em_wait = emit_state
             if em_wait is not None:
-                with self._mst("em[device]"):
+                with self._mst("em[device]"), self._mst("em.wait"):
                     em_wait()
             finished = []
             with self._mst("select+emit[host]",
@@ -958,6 +998,11 @@ class Aligner:
                     group_sink(g_bc, glines)
                 else:
                     lines.extend(glines)
+                t0 = pulled.pop(g_bc, None) if pulled is not None else None
+                if t0 is not None:
+                    self.metrics.record("stream.group", t0, time.time_ns(),
+                                        pair_bc.get(g_bc, 0),
+                                        batch=root.batch)
 
         from collections import deque
         from concurrent.futures import ThreadPoolExecutor
@@ -973,7 +1018,8 @@ class Aligner:
             k = 0
             pending = None          # one emit batch with its EM in flight
             while futs:
-                recs, idents, part_pool = futs.popleft().result()
+                with self._mst("pool.wait"):
+                    recs, idents, part_pool = futs.popleft().result()
                 if next_submit < len(chunk_starts):
                     futs.append(ex.submit(work, chunk_starts[next_submit]))
                     next_submit += 1
@@ -1009,6 +1055,9 @@ class Aligner:
         SAM lines are yielded as they are produced, so RSS stays flat
         regardless of input size.  Copied from
         ema_tpu/core/pipeline.py:1144-1179.
+
+        With ``metrics`` set, the fill of each flush batch is a
+        ``stream.read`` span and each group a ``stream.group`` span.
         """
         flush = flush_pairs or 8 * max(self.cfg.batch_size, 1)
         ids: List[str] = []
@@ -1017,23 +1066,36 @@ class Aligner:
         q1: List[str] = []
         s2: List[str] = []
         q2: List[str] = []
+        traced = self.metrics is not None
+        pulled: Optional[Dict[int, int]] = {} if traced else None
 
         def drain():
-            batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
-            yield from self.iter_batch_sam(batch)
+            bid = new_batch_id() if traced else None
+            with self._mst("batch.prep", len(ids), batch=bid):
+                batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
+            yield from self.iter_batch_sam(batch, batch_id=bid,
+                                           pulled=pulled)
             for lst in (ids, bcs, s1, q1, s2, q2):
                 lst.clear()
 
-        for g in groups:
-            ids.extend(g[0])
-            bcs.extend(g[1])
-            s1.extend(g[2])
-            q1.extend(g[3])
-            s2.extend(g[4])
-            q2.extend(g[5])
-            if len(ids) >= flush:
-                yield from drain()
-        if ids:
+        groups = iter(groups)
+        while True:
+            with self._mst("stream.read") as read:
+                for g in groups:
+                    if traced and len(g[1]):
+                        pulled[int(g[1][0])] = time.time_ns()
+                    ids.extend(g[0])
+                    bcs.extend(g[1])
+                    s1.extend(g[2])
+                    q1.extend(g[3])
+                    s2.extend(g[4])
+                    q2.extend(g[5])
+                    if len(ids) >= flush:
+                        break
+                if traced:
+                    read.n_items = len(ids)
+            if not ids:
+                return
             yield from drain()
 
     def _emit_groups(self, batch: ReadBatch, results, pool
