@@ -55,11 +55,14 @@ failure raises and the run exits non-zero:
      the chunk's SMEM hit rows, greedy seeding of its reads, and the fused
      seed+locate against host compaction + locate; device and native
      locate times;
-  4. em: the torch EM on the card against the host EM (numpy batch and
-     native flat EM) on the groups of one bench-world emit batch and on
+  4. em: the cloud-EM kernel (csrc/em_cloud.cu) through the dispatch on
+     the card against its plain version, the host EM (numpy batch) and the
+     native flat EM on the groups of one bench-world emit batch and on
      synthetic batches of multimapping groups (10x and many-clouds), each
-     with a group deeper than 64 candidates: rtol 1e-9 / atol 1e-12, the
-     same bits on a second run, and card and host EM times;
+     with a group deeper than 64 candidates and, synthetic, one past the
+     kernel's shared memory: rtol 1e-9 / atol 1e-12, the same bits on a
+     second run, one launch a dispatch, card and host EM times, and the
+     kernel's device time beside em_run's eager chain on the card;
   5. golden: the world of tests/test_golden.py aligned on the card with
      each scorer (banded, banded16, tier64, scan), with device and host
      EM and with device locate must reproduce tests/golden/expected.sam
@@ -1674,18 +1677,48 @@ def synthetic_em_group(rng, n_pairs: int, bc: int = 42):
     return recs, np.array(idents, dtype=object)
 
 
+def _device_events(fn, reps: int):
+    """The device events (kernels, copies, memsets) of ``reps`` runs of
+    ``fn`` under torch.profiler, as (name, microseconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    return [(e["name"], e["dur"]) for e in trace.get("traceEvents", [])
+            if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def phase_em(dev, card: str, idx, pairs) -> None:
-    """The torch EM on the card against the host EM (numpy batch and
-    native flat EM) on the groups of one bench-world emit batch (captured
-    before their EM ran), and on synthetic batches of multimapping groups
-    for a 10x and a many-clouds (tru) platform; each batch also holds a
-    group deeper than 64 candidates."""
+    """The cloud-EM kernel (csrc/em_cloud.cu) through dispatch_em_batch on
+    the card against its plain version (em_run on the flat pack, on the
+    CPU), the host EM (numpy batch) and the native flat EM, on the groups
+    of one bench-world emit batch (captured before their EM ran) and on
+    synthetic batches of multimapping groups for a 10x and a many-clouds
+    (tru) platform; each batch also holds a group deeper than 64
+    candidates, and each synthetic batch one group too large for the
+    kernel's shared memory.  Two runs give the same bits, and each
+    dispatch launches the kernel once.  On the bench batch the kernel's
+    device time is logged beside em_run's eager chain on the card."""
     from ema_tpu_torch import config
     from ema_tpu_torch.core import groups
     from ema_tpu_torch.core import em
     from ema_tpu_torch.core import pipeline as tp
     from ema_tpu_torch.core.batch import ReadBatch
+    from ema_tpu_torch.ops import _build, em_cloud
 
+    _build.load_library("em_cloud")
+    fns = ptxas_functions(_build.ptxas_log("em_cloud"))
+    log(f"ptxas em_cloud: {fns} (function, registers, spill stores)")
     captured = []
     dispatch = tp.dispatch_em_batch
 
@@ -1706,7 +1739,8 @@ def phase_em(dev, card: str, idx, pairs) -> None:
         profile = config.get_platform_profile(platform)
         batches[platform] = [groups.sweep_group(
             *synthetic_em_group(rng, n, bc=i), profile, n_pairs_in_group=n)
-            for i, n in enumerate((45, 31, 60, 80, 120, 5))]
+            for i, n in enumerate((45, 31, 60, 80, 120, 5, 1700))]
+    cpu = torch.device("cpu")
     for name, states in batches.items():
         profile = config.get_platform_profile("tru" if name == "tru"
                                               else "10x")
@@ -1716,21 +1750,31 @@ def phase_em(dev, card: str, idx, pairs) -> None:
                    if st.cmask.shape[1] <= groups.EM_NATIVE_C]
         check(len(shallow) >= 4 and len(gated) > len(shallow),
               f"the {name} EM batch lacks shallow or deep EM-gated groups")
+        pack = em.pack_states(shallow)
+        smem, fits = em_cloud.smem_plan(
+            np.diff(pack.cand_off[pack.e_off]), np.diff(pack.k_off))
+        check(name == "bench" or not fits.all(),
+              f"no group of the {name} batch overflows shared memory")
 
-        host, nat = _copy_states(states), _copy_states(states)
+        host, nat, plain = (_copy_states(states) for _ in range(3))
         groups.run_em_host_batch(host)
         for st in nat:
             if st.needs_em:
                 groups.run_em_native(st)
+        em.dispatch_em_batch(plain, cpu)()
         stream = torch.cuda.Stream(dev)
         runs = []
         for _ in range(2):
             run = _copy_states(states)
+            n0 = em_cloud.LAUNCHES.value
             em.dispatch_em_batch(run, dev, stream)()
+            check(em_cloud.LAUNCHES.value - n0 == 1,
+                  f"a dispatch of the {name} batch launched the kernel "
+                  f"{em_cloud.LAUNCHES.value - n0} times")
             runs.append(run)
         err = 0.0
-        for c1, c2, h, n in zip(*runs, host, nat):
-            for ref in (h, n):
+        for c1, c2, p, h, n in zip(*runs, plain, host, nat):
+            for ref in (p, h, n):
                 np.testing.assert_allclose(c1.gammas, ref.gammas, rtol=1e-9,
                                            atol=1e-12)
                 err = max(err, float(np.abs(c1.gammas - ref.gammas).max()))
@@ -1749,13 +1793,51 @@ def phase_em(dev, card: str, idx, pairs) -> None:
         host_ms = statistics.median([_host_ms(
             lambda: groups.run_em_host_batch(_copy_states(states)), 1)
             for _ in range(3)])
+        pack_ms = statistics.median([_host_ms(
+            lambda: em.pack_states(shallow), 1) for _ in range(5)])
+        n_bytes = em_cloud.flat_bytes(pack)
         log(f"em [{name}]: {len(states)} groups, {len(gated)} EM-gated "
-            f"({len(gated) - len(shallow)} deep), padded [G, E, C, NC] = "
-            f"{groups._pack_states(shallow)[1]}, the card EM moved the "
-            f"gammas of {moved} shallow groups; card vs host/native max abs "
-            f"diff {err} (rtol 1e-9, atol 1e-12), two card runs identical; "
-            f"EM ms (dispatch + wait, median) card {card_ms}, host "
-            f"run_em_host_batch {host_ms}; card: {card}")
+            f"({len(gated) - len(shallow)} deep), flat {pack.score.size} "
+            f"candidates, {pack.comp.size} clouds, {n_bytes} bytes, smem "
+            f"{smem} bytes ({int((~fits).sum())} groups overflow); the card "
+            f"EM moved the gammas of {moved} shallow groups; card vs "
+            f"plain/host/native max abs diff {err} (rtol 1e-9, atol "
+            f"1e-12), two card runs identical, one launch a dispatch; EM "
+            f"ms (host, dispatch + wait, median) card {card_ms} (pack "
+            f"{pack_ms}), host run_em_host_batch {host_ms}; card: {card}")
+        if name != "bench":
+            continue
+        # the kernel's device time against em_run's eager chain on the
+        # card over the same groups, padded as the eager dispatch padded
+        reps = 20
+        ev = _device_events(card_em, reps)
+        k_us = sum(us for n, us in ev if em_cloud.KERNEL_SYMBOL in n) / reps
+        all_us = sum(us for _, us in ev) / reps
+        d, (G, E, C, NC) = groups._pack_states(shallow)
+        d["run_em"] = np.ones(G, bool)
+        with torch.cuda.stream(stream):
+            inp = em.EMInputs(**{k: torch.from_numpy(np.ascontiguousarray(
+                v)).to(dev) for k, v in d.items()})
+        torch.cuda.synchronize()
+
+        def eager():
+            with torch.cuda.stream(stream):
+                em.em_run(inp, many=shallow[0].many)
+
+        ev_run = _device_events(eager, 5)
+        run_us = sum(us for _, us in ev_run) / 5
+        run_host_ms = statistics.median([_host_ms(
+            lambda: (eager(), torch.cuda.synchronize()), 1)
+            for _ in range(5)])
+        bound_us = n_bytes / 3.35e12 * 1e6
+        log(f"em_cloud [bench]: kernel {k_us} us a launch (device events of "
+            f"a dispatch {all_us} us, {len(ev) / reps} events: copy up, "
+            f"kernel, copy back); em_run eager on the card [G, E, C, NC] = "
+            f"{(G, E, C, NC)}: {run_us} us of device time in "
+            f"{len(ev_run) / 5} device events a call, {run_host_ms} ms "
+            f"host wall a call; bound (flat bytes at 3.35 TB/s) {bound_us} "
+            f"us, kernel at {100 * bound_us / k_us if k_us else 0}% of it "
+            f"(latency-bound); card: {card}")
 
 
 def long_read_world():

@@ -1,4 +1,5 @@
-"""The cloud EM as batched torch ops on one device, and its dispatch.
+"""The cloud EM: its plain version as batched torch ops, and its dispatch
+to the card's kernel.
 
 The counterpart of ema_tpu/core/em_jax.py (the model) and of
 groups.dispatch_em_device_batch (ema_tpu/core/groups.py:736-823, the
@@ -14,15 +15,22 @@ batching and the asynchronous readback).  Same semantics as the host EM of
   - ``normalize_log_probs``: max shift, the log(1e-50) - log(n) floor,
     exactly 1.0 for single-candidate rows (src/util.c:129-163).
 
+``em_run`` is the plain version and the tests' reference.  The dispatch
+packs its groups flat and unpadded (``pack_states``); on a card one launch
+of csrc/em_cloud.cu runs the whole EM of every group (ops/em_cloud.py),
+on the CPU ``em_run_flat`` unflattens the same pack for ``em_run``.
+
 Always float64, on an explicit device: em_jax is float64 only under x64,
 and the golden SAM was frozen under x64.  The scatter-adds are
-deterministic on both devices (``_scatter_sum``), so two runs on the same
-inputs give the same bits.
+deterministic (``_scatter_sum``; the kernel sums each cloud in a fixed
+order), so two runs on the same inputs give the same bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
@@ -30,8 +38,10 @@ import torch
 
 from ema_tpu_torch import config
 from ema_tpu_torch.core.groups import (EM_NATIVE_C, GroupState,
-                                       _pack_states, run_em_native)
+                                       _round_up_pow2, run_em_native)
+from ema_tpu_torch.ops import em_cloud
 from ema_tpu_torch.utils.logprobs import _LOG_EPSILON
+from ema_tpu_torch.utils.metrics import Metrics
 
 F64 = torch.float64
 
@@ -193,34 +203,161 @@ def em_run(inp: EMInputs, *, many: bool = False,
     return gammas, weights
 
 
-def _narrow(a: np.ndarray) -> np.ndarray:
-    """int16 for the upload when every value fits (groups.py:795-798):
-    cloud, entry and chrom indices virtually always do."""
-    if a.size and (a.max() >= (1 << 15) or a.min() < -(1 << 15)):
-        return a
-    return a.astype(np.int16)
+class EMPack(NamedTuple):
+    """The EM-gated groups of one dispatch, flat and unpadded: the layout
+    of csrc/em_cloud.cu (ops/em_cloud.FIELDS, in its argument order).
+    Group g owns entries [e_off[g], e_off[g+1]) and clouds [k_off[g],
+    k_off[g+1]); entry e owns candidates [cand_off[e], cand_off[e+1]), its
+    cmask-selected ones in column order."""
+
+    e_off: np.ndarray            # int32 [G + 1]
+    k_off: np.ndarray            # int32 [G + 1]
+    cand_off: np.ndarray         # int32 [E + 1]
+    mate: np.ndarray             # int32 [E]: mate entry in the group, or -1
+    score: np.ndarray            # f64 [N]
+    cloud: np.ndarray            # int32 [N]: cloud in the group
+    chrom: np.ndarray            # int32 [N]
+    pos: np.ndarray              # int64 [N]
+    flags: np.ndarray            # uint8 [N]: 1 reverse, 2 active
+    comp: np.ndarray             # int32 [K]: chain of each cloud in the group
+    cloud_cand_off: np.ndarray   # int32 [K + 1]
+    cloud_cands: np.ndarray      # int32 [N]: each cloud's candidates, ascending
+    comp_cloud_off: np.ndarray   # int32 [K + 1]
+    comp_clouds: np.ndarray      # int32 [K]: each chain's clouds, ascending
+
+
+def _offsets(counts: np.ndarray) -> np.ndarray:
+    """int32 [len(counts) + 1]: 0 and the running sums of ``counts``."""
+    off = np.zeros(len(counts) + 1, np.int32)
+    np.cumsum(counts, out=off[1:])
+    return off
+
+
+def _csr(keys: np.ndarray, base: np.ndarray, n: int):
+    """(offsets [n + 1], members) of the global ``keys``: the indices i
+    with keys[i] == k, ascending, as ``i - base[i]``."""
+    order = np.argsort(keys, kind="stable")
+    return (_offsets(np.bincount(keys, minlength=n)),
+            (order - base[order]).astype(np.int32))
+
+
+def pack_states(states: List[GroupState]) -> EMPack:
+    """The flat pack of ``states`` in one pass over the groups."""
+    n_ent = np.array([st.n_entries for st in states], np.int64)
+    n_k = np.array([st.n_clouds for st in states], np.int64)
+    cols = {k: [] for k in ("counts", "mate", "cloud", "comp", "score",
+                            "chrom", "pos", "rev", "active", "duplicate")}
+    for st in states:
+        cm, R = st.cmask, st.R
+        idx = st.cand_rec[cm]
+        cols["counts"].append(cm.sum(axis=1))
+        cols["mate"].append(st.mate_entry)
+        cols["cloud"].append(st.cand_cloud[cm])
+        cols["comp"].append(st.comp)
+        for f in ("score", "chrom", "pos", "rev", "active", "duplicate"):
+            cols[f].append(R[f][idx])
+    c = {k: np.concatenate(v) for k, v in cols.items()}
+    e_off, k_off, cand_off = (_offsets(n_ent), _offsets(n_k),
+                              _offsets(c["counts"]))
+    K = int(k_off[-1])
+    cloud = c["cloud"].astype(np.int32)
+    comp = c["comp"].astype(np.int32)
+    c_start = cand_off[e_off[:-1]]
+    n_cand = cand_off[e_off[1:]] - c_start
+    cloud_k0 = np.repeat(k_off[:-1], n_k)
+    cloud_cand_off, cloud_cands = _csr(
+        cloud + np.repeat(k_off[:-1], n_cand), np.repeat(c_start, n_cand), K)
+    comp_cloud_off, comp_clouds = _csr(comp + cloud_k0, cloud_k0, K)
+    flags = ((c["rev"] == 1)
+             | ((c["active"] & ~c["duplicate"]) << 1)).astype(np.uint8)
+    return EMPack(
+        e_off=e_off, k_off=k_off, cand_off=cand_off,
+        mate=c["mate"].astype(np.int32),
+        score=c["score"].astype(np.float64, copy=False), cloud=cloud,
+        chrom=c["chrom"].astype(np.int32, copy=False),
+        pos=c["pos"].astype(np.int64, copy=False), flags=flags, comp=comp,
+        cloud_cand_off=cloud_cand_off, cloud_cands=cloud_cands,
+        comp_cloud_off=comp_cloud_off, comp_clouds=comp_clouds)
+
+
+def em_run_flat(pack: EMPack, many: bool) -> np.ndarray:
+    """The plain version of csrc/em_cloud.cu: the pack unflattened to
+    padded [G, E, C] planes (E, C and NC rounded up as
+    groups._pack_states rounds them), ``em_run`` on CPU tensors, and every
+    candidate's gamma in the pack's order."""
+    e_off = pack.e_off.astype(np.int64)
+    k_off = pack.k_off.astype(np.int64)
+    cand_off = pack.cand_off.astype(np.int64)
+    G, n_e, K = e_off.size - 1, int(e_off[-1]), int(k_off[-1])
+    counts, n_k = np.diff(cand_off), np.diff(k_off)
+    E = _round_up_pow2(int(np.diff(e_off).max()))
+    C = _round_up_pow2(int(counts.max()), 2)
+    NC = _round_up_pow2(max(int(n_k.max()), 1))
+    ent_g = np.repeat(np.arange(G), np.diff(e_off))
+    ent_l = np.arange(n_e) - e_off[ent_g]
+    cand_e = np.repeat(np.arange(n_e), counts)
+    at = (ent_g[cand_e], ent_l[cand_e],
+          np.arange(cand_off[-1]) - cand_off[cand_e])
+
+    def plane(vals, dtype):
+        out = np.zeros((G, E, C), dtype)
+        out[at] = vals
+        return out
+
+    mate = np.full((G, E), -1, np.int64)
+    mate[ent_g, ent_l] = pack.mate
+    emask = np.zeros((G, E), bool)
+    emask[ent_g, ent_l] = True
+    comp = np.broadcast_to(np.arange(NC), (G, NC)).copy()
+    if not many:
+        k_g = np.repeat(np.arange(G), n_k)
+        comp[k_g, np.arange(K) - k_off[k_g]] = pack.comp
+    planes = dict(
+        score=plane(pack.score, np.float64), cmask=plane(True, bool),
+        active=plane(pack.flags & 2 != 0, bool),
+        cand_cloud=plane(pack.cloud, np.int64),
+        rec_chrom=plane(pack.chrom, np.int64),
+        rec_pos=plane(pack.pos, np.int64),
+        rec_rev=plane(pack.flags & 1, np.int64), mate_entry=mate,
+        emask=emask, comp=comp, run_em=np.ones(G, bool))
+    gammas, _ = em_run(EMInputs(**{k: torch.from_numpy(v)
+                                   for k, v in planes.items()}), many=many)
+    return gammas.numpy()[at]
+
+
+def _write_back(states: List[GroupState], pack: EMPack,
+                flat: np.ndarray) -> None:
+    """Each state's [e, c] gammas from its slice of the flat gammas."""
+    c_start = pack.cand_off[pack.e_off]
+    for g, st in enumerate(states):
+        gam = np.zeros(st.cmask.shape, np.float64)
+        gam[st.cmask] = flat[c_start[g]:c_start[g + 1]]
+        st.gammas = gam
 
 
 def dispatch_em_batch(states: List[GroupState], device: torch.device,
-                      stream: Optional[torch.cuda.Stream] = None
+                      stream: Optional[torch.cuda.Stream] = None,
+                      metrics: Optional[Metrics] = None
                       ) -> Callable[[], None]:
-    """Launch one padded [G, E, C] EM for the EM-gated groups on
-    ``device``; return ``wait``, which blocks on the result and writes
-    each state's gammas (groups.dispatch_em_device_batch).
+    """Launch the EM of the EM-gated groups on ``device``; return
+    ``wait``, which blocks on the result and writes each state's gammas
+    (groups.dispatch_em_device_batch).
 
-    On a CUDA device the upload, ``em_run`` and the readback into pinned
+    The groups are packed flat (``pack_states``).  On a CUDA device one
+    upload, one launch of csrc/em_cloud.cu and one readback into pinned
     host memory are queued on ``stream`` (a side stream from torch's pool
-    when None) with an event behind them, so the host work done between
-    dispatch and ``wait`` (the previous emit batch's selection and
-    emission) overlaps the device.  Pool streams are created non-blocking,
-    so they do not serialise with the default stream on which chunk
-    workers launch the SW kernels.  On the CPU the EM runs here and
-    ``wait`` only writes the gammas.
+    when None) with an event behind them (ops/em_cloud.launch), so the
+    host work done between dispatch and ``wait`` (the previous emit
+    batch's selection and emission) overlaps the device.  Pool streams are
+    created non-blocking, so they do not serialise with the default stream
+    on which chunk workers launch the SW kernels.  On the CPU the plain
+    version (``em_run_flat``) runs here and ``wait`` only writes the
+    gammas.  With ``metrics``, ``em.pack`` and ``em.launch`` time the two
+    steps inside the caller's span and ``em.kernel`` counts the groups of
+    the launch.
 
     Groups must share ``many``.  Groups deeper than EM_NATIVE_C
-    candidates run through the native flat EM here, as in the reference
-    ([G, E, C, C] mate terms would explode).  G is not padded to a power
-    of two: that served XLA's compile cache, and torch compiles nothing.
+    candidates run through the native flat EM here, as in the reference.
     """
     states = [st for st in states if st.needs_em]
     for st in states:
@@ -232,40 +369,27 @@ def dispatch_em_batch(states: List[GroupState], device: torch.device,
     many = states[0].many
     if any(st.many != many for st in states):
         raise ValueError("dispatch_em_batch: groups must share many_clouds")
-    d, (G, E, C, NC) = _pack_states(states)
-    planes = dict(
-        score=d["score"], cmask=d["cmask"], active=d["active"],
-        cand_cloud=_narrow(d["cand_cloud"]),
-        rec_chrom=_narrow(d["rec_chrom"]), rec_pos=d["rec_pos"],
-        rec_rev=d["rec_rev"].astype(np.int8),
-        mate_entry=_narrow(d["mate_entry"]), emask=d["emask"],
-        comp=_narrow(d["comp"]), run_em=np.ones(G, bool))
 
-    def write(gh: np.ndarray) -> None:
-        for g, st in enumerate(states):
-            e, c = st.cmask.shape
-            st.gammas = gh[g, :e, :c]
+    def span(name):
+        return (metrics.stage(name) if metrics is not None
+                else contextlib.nullcontext())
 
+    with span("em.pack"):
+        pack = pack_states(states)
+    with span("em.launch"):
+        if device.type == "cuda":
+            pending = em_cloud.launch(pack, many, device,
+                                      stream or torch.cuda.Stream(device))
+        else:
+            flat = em_run_flat(pack, many)
+    if metrics is not None:
+        now = time.time_ns()
+        metrics.record("em.kernel", now, now, len(states))
     if device.type != "cuda":
-        gammas, _ = em_run(EMInputs(**{
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in planes.items()}), many=many)
-        gh = gammas.numpy()
-        return lambda: write(gh)
-
-    stream = stream or torch.cuda.Stream(device)
-    with torch.cuda.stream(stream):
-        inp = EMInputs(**{
-            k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
-            .to(device, non_blocking=True) for k, v in planes.items()})
-        gammas, _ = em_run(inp, many=many)
-        host = torch.empty(gammas.shape, dtype=F64, pin_memory=True)
-        host.copy_(gammas, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(stream)
+        return lambda: _write_back(states, pack, flat)
 
     def wait() -> None:
-        done.synchronize()
-        write(host.numpy())
+        _write_back(states, pack, pending.wait())
+        pending.release()
 
     return wait

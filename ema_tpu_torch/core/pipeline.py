@@ -15,9 +15,9 @@ Stage layout (stage names as in the JAX package's Metrics):
      the CUDA kernel on a GPU, its plain version on the CPU)
   6. mate rescue windows + a second sw[device] pass
   7. traceback+finalize[host]: CIGARs for survivors (native C++)
-  8. em[device] (core/em.dispatch_em_batch, launched before the previous
-     batch's emission and waited for after it) or em[host]
-     (groups.run_em_host_batch)
+  8. em[device] (core/em.dispatch_em_batch: em.pack, then em.launch of
+     the cloud-EM kernel, queued before the previous batch's emission and
+     waited for after it) or em[host] (groups.run_em_host_batch)
   9. select+emit[host]: selection + SAM emission
 
 The Aligner takes the JAX Aligner's choices (pipeline.py:198-386):
@@ -960,9 +960,10 @@ class Aligner:
                                             len(depth) - deep)
                         self.metrics.record("em.native_groups", now, now,
                                             deep)
-                    # one padded device call for all EM-gated groups
+                    # one flat launch for all EM-gated groups
                     em_wait = dispatch_em_batch(states, self.device,
-                                                self._em_stream)
+                                                self._em_stream,
+                                                self.metrics)
                 else:
                     # one padded numpy pass for all EM-gated groups
                     groups_mod.run_em_host_batch(states)

@@ -10,9 +10,9 @@ source.  A failed build raises; there is no fallback.
 
 Each library exports ``<name>_launch`` with the argument types that
 ``KERNELS`` gives it (the SW signature, the one with a permutation of
-sw_banded and sw_banded16, or the ALU probe's; every SW kernel takes a
-thread form after max_wl, 0 for the launch's own choice) and, for the
-banded kernels, ``<name>_max_wl``.
+sw_banded and sw_banded16, the ALU probe's or the cloud EM's; every SW
+kernel takes a thread form after max_wl, 0 for the launch's own choice)
+and, for the banded kernels, ``<name>_max_wl``.
 """
 
 from __future__ import annotations
@@ -48,12 +48,17 @@ def _with_group(argtypes):
 
 # (x, out, n, K, unroll, form, stream)
 PROBE_ARGTYPES = [_p, _p, _i64, _i32, _i32, _i32, _p]
+# (the 14 arrays of ops/em_cloud.FIELDS, out, scratch, G, many, iters,
+#  insert_min, insert_max, penalty, smem_bytes, stream)
+EM_CLOUD_ARGTYPES = [_p] * 16 + [_i64, _i32, _i32, _i64, _i64,
+                                 ctypes.c_double, _i64, _p]
 # kernel -> the argument types of its <name>_launch
 KERNELS = {"sw_banded": _with_group(SW_BANDED_ARGTYPES),
            "sw_banded16": _with_group(SW_BANDED_ARGTYPES),
            "sw_banded_packed": _with_group(SW_ARGTYPES),
            "sw_batch": _with_group(SW_ARGTYPES),
-           "alu_probe": PROBE_ARGTYPES}
+           "alu_probe": PROBE_ARGTYPES,
+           "em_cloud": EM_CLOUD_ARGTYPES}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -5,7 +5,8 @@ the stage table is the sum of its spans; with no Metrics on the Aligner
 nothing is recorded; an align_stream pass and an align -x call record
 the spans the benchmark's readers and the CLI's table read; the spans
 share the realtime clock of torch.profiler's events; --profile shows
-them in its trace.
+them in its trace; the device EM's dispatch splits into its pack and its
+launch.
 """
 
 import collections
@@ -289,3 +290,44 @@ def test_profile_trace_shows_the_spans(world, tmp_path):
     assert {"align", "batch", "batch.prep", "chunk", "seed[smem,host]",
             "sw[device]", "pool.wait", "sweep[host]",
             "select+emit[host]"} <= names
+
+
+def test_device_em_spans_split_the_dispatch(tmp_path):
+    """With device_em on the CPU (the plain version of the cloud-EM
+    kernel): em.pack and em.launch sit under the dispatch side of
+    em[device], em.kernel counts the groups em.groups counts, and the
+    table's em[device] is still its dispatch and wait sides together."""
+    w = _world(tmp_path, 16, 80_000, 3, (16, 24), 10_000, 80,
+               frags_per_bc=(2, 3))
+    idx = cli._load_or_build_index(w[0])
+    met = Metrics()
+    al = pipeline.Aligner(idx, config.RunConfig(batch_size=32,
+                                                device_em=True),
+                          device="cpu")
+    al.metrics = met
+    lines = [ln for part in al.align_stream(iter(_groups(w)),
+                                            flush_pairs=64)
+             for ln in part]
+    assert len(lines) == 2 * len(w[1])
+    by = collections.defaultdict(list)
+    for sp in met.spans:
+        by[sp.name].append(sp)
+    assert {sp.parent.name for sp in by["em.pack"] + by["em.launch"]} == \
+        {"em[device]"}
+    for sp in by["em.pack"] + by["em.launch"] + by["em.wait"]:
+        assert sp.parent.start_ns <= sp.start_ns <= sp.end_ns \
+            <= sp.parent.end_ns
+    n_groups = sum(sp.n_items for sp in by["em.groups"])
+    assert n_groups > 0
+    assert sum(sp.n_items for sp in by["em.kernel"]) == n_groups
+    assert all(sp.start_ns == sp.end_ns for sp in by["em.kernel"])
+    # the wait side holds em.wait; the dispatch side, em.pack where a
+    # group passed the gate
+    wait = {id(sp.parent) for sp in by["em.wait"]}
+    dispatch = [sp for sp in by["em[device]"] if id(sp) not in wait]
+    assert {id(sp.parent) for sp in by["em.pack"]} <= {id(sp)
+                                                       for sp in dispatch}
+    assert len(wait) == len(dispatch) == len(by["em[device]"]) // 2
+    assert met.wall["em[device]"] == pytest.approx(
+        sum(sp.seconds for sp in dispatch)
+        + sum(sp.parent.seconds for sp in by["em.wait"]), rel=1e-12)
