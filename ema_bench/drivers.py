@@ -46,7 +46,11 @@ def _stage_tables(into: list):
 
 
 def _qname_group(line: str) -> int:
-    return int(line[1:line.index("p")])
+    """The group of a SAM line's pair: the ``g<group>p<k>`` of
+    ``generate.read_name``, wherever it stands in the QNAME (the QNAME
+    leads the line, and a well number holds no ``g``)."""
+    i = line.index("g")
+    return int(line[i + 1:line.index("p", i)])
 
 
 def take_lines(lines, got, need, sampled, kept) -> list:
@@ -195,6 +199,13 @@ class StreamDriver:
 
 class XDriver:
     def __init__(self, run):
+        cfg = run.config
+        if cfg["platform"] != "10x":
+            raise SystemExit(
+                f"ema_bench: configuration {cfg['name']!r} is "
+                f"{cfg['platform']}; the x driver's buckets come from the "
+                "port's preproc, which is 10x-only (16 bp barcodes): run "
+                "it with the stream driver")
         self.run = run
         self.calls = []     # (bucket indices, out path, wall s, stages)
 

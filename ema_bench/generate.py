@@ -1,14 +1,23 @@
 """The benchmark's one generator: a reference genome with planted repeat
 families, a sample that differs from it by SNVs and small indels, and
-10x linked-read pairs drawn from that sample.  Everything is numpy and
+linked-read pairs drawn from that sample, with the barcodes and read
+names of the configuration's platform.  Everything is numpy and
 comes from a seed: the genome from the configuration's own seed, the
 sample and its reads from the run's ``--seed``.
 
 Parameters come from data files only: ``configs/<name>.json`` (genome,
 read shapes, platform) and ``traffic/<name>.json`` (molecules, pairs,
-inserts, pool size).  A read pair's truth is the 0-based reference
-coordinate of the leftmost base of each mate, as aligned on the forward
-strand.
+inserts, pool size).
+
+Barcodes follow EMA's platforms (src/techs.c): ``10x``, ``dbs`` and
+``tellseq`` draw ACGT strings of ``reads.bc_len``; ``haplotag`` draws
+four segments A, C, B and D, each numbered 01-96 (Meier et al., PNAS
+118:e2015005118, 2021); ``tru`` and ``cpt`` draw distinct integers from
+``reads.bc_range`` (both ends included).  Groups come in the order of
+the aligner's barcode value, worked out here in NumPy.
+
+A read pair's truth is the 0-based reference coordinate of the leftmost
+base of each mate, as aligned on the forward strand.
 """
 
 from __future__ import annotations
@@ -128,12 +137,86 @@ def encode_bc(codes: np.ndarray) -> np.ndarray:
         axis=1, dtype=np.uint64)
 
 
+ACGT_PLATFORMS = ("10x", "dbs", "tellseq")
+INT_PLATFORMS = ("tru", "cpt")
+PLATFORMS = ACGT_PLATFORMS + ("haplotag",) + INT_PLATFORMS
+HAPLOTAG_WELLS = 96     # each of the four segments is numbered 01-96
+
+
+def draw_barcodes(rng, platform: str, reads: dict, n_bc: int):
+    """``n_bc`` distinct barcodes of ``platform``: (label of each, as the
+    read name carries it; the aligner's barcode value of each, uint64).
+
+    ACGT platforms take one [n_bc, bc_len] draw of base codes, and draw
+    again only the barcodes whose value an earlier one has; haplotag
+    packs its segments as A<<24 | C<<16 | B<<8 | D (EMA src/util.c);
+    integer platforms' value is the integer."""
+    if platform in ACGT_PLATFORMS:
+        bl = int(reads["bc_len"])
+        codes = rng.integers(0, 4, (n_bc, bl), dtype=np.uint8)
+        val = encode_bc(codes)
+        while True:
+            _, first = np.unique(val, return_index=True)
+            if first.shape[0] == n_bc:
+                break
+            again = np.setdiff1d(np.arange(n_bc), first)
+            codes[again] = rng.integers(0, 4, (again.shape[0], bl),
+                                        dtype=np.uint8)
+            val = encode_bc(codes)
+        return ["".join("ACGT"[c] for c in row) for row in
+                codes.tolist()], val
+    if platform == "haplotag":
+        w = HAPLOTAG_WELLS
+        flat = rng.choice(w ** 4, n_bc, replace=False)
+        seg = np.stack([flat // w ** 3, flat // w ** 2 % w, flat // w % w,
+                        flat % w], axis=1).astype(np.uint64) + 1
+        val = (seg[:, 0] << 24) | (seg[:, 1] << 16) | (seg[:, 2] << 8) \
+            | seg[:, 3]
+        return ["A%02dC%02dB%02dD%02d" % tuple(r) for r in seg.tolist()], \
+            val.astype(np.uint64)
+    if platform in INT_PLATFORMS:
+        lo, hi = (int(x) for x in reads["bc_range"])
+        if hi - lo + 1 < n_bc:
+            raise ValueError(f"reads.bc_range {lo}-{hi} holds fewer than "
+                             f"the {n_bc} barcodes the traffic draws")
+        val = lo + rng.choice(hi - lo + 1, n_bc, replace=False)
+        return [str(v) for v in val.tolist()], val.astype(np.uint64)
+    raise ValueError(f"no barcodes for platform {platform!r} (one of "
+                     f"{', '.join(PLATFORMS)})")
+
+
+def read_name(platform: str, group: int, k: int, label: str) -> str:
+    """The QNAME that the port prints for pair ``k`` of ``group``: the
+    harness's ``g<group>p<k>``, led by the well number on ``tru``, whose
+    reader takes the whole read ID (EMA src/techs.c)."""
+    name = f"g{group}p{k}"
+    return f"{label}-{name}" if platform == "tru" else name
+
+
+def name_pair(qname: str):
+    """(group, pair) of a QNAME made by ``read_name``."""
+    i = qname.rindex("g")
+    j = qname.index("p", i)
+    return int(qname[i + 1:j]), int(qname[j + 1:])
+
+
+# the FASTQ header of a pair on each platform, as the port's reader takes
+# it (EMA src/techs.c): ``name:BC`` (10x, DBS), ``name BX:Z:BC`` (the form
+# TELL-seq's and haplotagging's pipelines write), the well number leading
+# the ID (TruSeq SLR; ``read_name`` puts it there), and ``name:BC<n>``,
+# whose number CPT-seq's reader takes from two characters past the last
+# ':'
+HEADS = {"10x": "@{name}:{bc}\n", "dbs": "@{name}:{bc}\n",
+         "tellseq": "@{name} BX:Z:{bc}\n", "haplotag": "@{name} BX:Z:{bc}\n",
+         "tru": "@{name}\n", "cpt": "@{name}:BC{bc}\n"}
+
+
 @dataclasses.dataclass
 class Pool:
     """Read pairs in barcode-group order (the order of a barcode-sorted
     FASTQ, groups by the aligner's barcode value)."""
-    names: list            # QNAME of pair k: g<group>p<k>
-    bcs: list              # barcode string of pair k
+    names: list            # QNAME of pair k (read_name)
+    bcs: list              # barcode label of pair k
     group: np.ndarray      # int64 [P] group of pair k (0, 1, ... in order)
     r1: np.ndarray         # uint8 [P, r1_len] mate 1 as sequenced
     r2: np.ndarray         # uint8 [P, r2_len] mate 2 as sequenced
@@ -142,6 +225,8 @@ class Pool:
     em_repeat: np.ndarray  # bool [P, 2] mate wholly inside an exact
     #                        repeat copy (em_repeat_max_ppm)
     qual: str              # the quality character of every base
+    platform: str = "10x"  # the read names' form (HEADS)
+    bc_val: np.ndarray = None  # uint64 [P] the aligner's barcode value
 
     @property
     def n(self) -> int:
@@ -153,7 +238,7 @@ class Pool:
 
 
 def make_pool(rng, sample: Sample, repeats: np.ndarray, reads: dict,
-              traffic: dict, n_pairs: int) -> Pool:
+              traffic: dict, n_pairs: int, platform: str = "10x") -> Pool:
     """``n_pairs`` pairs of linked reads: barcodes of ``molecules``
     molecules of ``molecule_bp``, each with ``pairs_per_molecule`` pairs
     of insert sizes in ``insert_bp``, strands at random, sequencing
@@ -174,11 +259,7 @@ def make_pool(rng, sample: Sample, repeats: np.ndarray, reads: dict,
                         mol_bc.shape[0])
     pair_mol = np.repeat(np.arange(mol_bc.shape[0]), n_pm)
     pair_bc = mol_bc[pair_mol]
-    bc_codes = rng.integers(0, 4, (n_bc, int(reads["bc_len"])),
-                            dtype=np.uint8)
-    bc_val = encode_bc(bc_codes)
-    if np.unique(bc_val).shape[0] != n_bc:
-        raise ValueError("barcode collision: draw again with another seed")
+    bc_str, bc_val = draw_barcodes(rng, platform, reads, n_bc)
     # barcode-sorted: groups in the aligner's barcode order, pairs of a
     # group shuffled
     bc_rank = np.empty(n_bc, np.int64)
@@ -219,24 +300,26 @@ def make_pool(rng, sample: Sample, repeats: np.ndarray, reads: dict,
         em_rep |= (left >= s) & (ends < e)
 
     group = np.concatenate([[0], np.cumsum(pair_bc[1:] != pair_bc[:-1])])
-    bc_str = ["".join("ACGT"[c] for c in row) for row in bc_codes.tolist()]
-    names = [f"g{g}p{k}" for k, g in enumerate(group.tolist())]
-    return Pool(names=names, bcs=[bc_str[b] for b in pair_bc.tolist()],
-                group=group.astype(np.int64), r1=r1, r2=r2, left=left,
-                rev=np.stack([rev1, ~rev1], axis=1), em_repeat=em_rep,
-                qual=str(reads["qual"]))
+    bcs = [bc_str[b] for b in pair_bc.tolist()]
+    names = [read_name(platform, g, k, bc) for k, (g, bc) in
+             enumerate(zip(group.tolist(), bcs))]
+    return Pool(names=names, bcs=bcs, group=group.astype(np.int64), r1=r1,
+                r2=r2, left=left, rev=np.stack([rev1, ~rev1], axis=1),
+                em_repeat=em_rep, qual=str(reads["qual"]),
+                platform=platform, bc_val=bc_val[pair_bc])
 
 
 def write_pair_fastqs(pool: Pool, path1: str, path2: str) -> None:
-    """Barcode-sorted paired FASTQs as ``align -1/-2`` reads them: the
-    barcode after the last ':' of the read name (10x, EMA techs.c)."""
+    """Barcode-sorted paired FASTQs as ``align -1/-2 -p <platform>`` reads
+    them: each header in the platform's form (``HEADS``)."""
     q1 = pool.qual * pool.r1.shape[1]
     q2 = pool.qual * pool.r2.shape[1]
     s1 = ASCII[pool.r1]
     s2 = ASCII[pool.r2]
+    form = HEADS[pool.platform]
     with open(path1, "w") as f1, open(path2, "w") as f2:
         for k in range(pool.n):
-            head = f"@{pool.names[k]}:{pool.bcs[k]}\n"
+            head = form.format(name=pool.names[k], bc=pool.bcs[k])
             f1.write(f"{head}{s1[k].tobytes().decode()}\n+\n{q1}\n")
             f2.write(f"{head}{s2[k].tobytes().decode()}\n+\n{q2}\n")
 

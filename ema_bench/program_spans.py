@@ -11,14 +11,14 @@ stages or spans every reader returns None.
     python3 -m ema_bench.program_spans --workload <cell> --seed <n>
         --seconds <s>
 
-runs the cell as ``python3 -m ema_bench.run ... --trace 1`` does, with
-each program span of the window handed to the run's spans through the
-port's ``SPAN_OBSERVERS``, so that its result line's
+runs the cell as ``python3 -m ema_bench.run ... --trace 1`` does (a
+traced run hands each program span of its window to the run's spans
+through the port's ``SPAN_OBSERVERS``, ``run.Run.observe``, so that
 ``breakdown.idle_gaps`` name each gap by the shortest span that holds
-it, the program's included.  A second JSON line gives the device's idle
-seconds by the innermost span open on the main thread, and the shares of
-the idle time and of the main thread's wall that lie inside a span of
-work (any span but ``ROOTS``).
+it, the program's included), then prints a second JSON line: the
+device's idle seconds by the innermost span open on the main thread,
+and the shares of the idle time and of the main thread's wall that lie
+inside a span of work (any span but ``ROOTS``).
 """
 
 from __future__ import annotations
@@ -162,41 +162,13 @@ def shares(spans, main: int, t0: int, t1: int,
 
 
 def main(argv=None, root=None, device: str = "cuda") -> int:
-    """``ema_bench.run``'s command line, traced, with the program's spans
-    naming the idle gaps; a second line of shares (``shares``).
-    ``root`` and ``device`` are for the tests."""
-    from ema_tpu_torch.utils import metrics
-
-    observers = getattr(metrics, "SPAN_OBSERVERS", None)
+    """``ema_bench.run``'s command line, traced (where every run's
+    program spans name the idle gaps), and a second line of shares
+    (``shares``).  ``root`` and ``device`` are for the tests."""
     runs = []
-
-    class Observed(bench_run.Run):
-        def open_window(self):
-            super().open_window()
-            self.program = []
-            runs.append(self)
-            if self.trace and observers is not None:
-                observers.append(self.observe)
-
-        def observe(self, sp) -> None:
-            self.program.append(sp)
-            # a group's latency is no work: it names no gap
-            if sp.name != "stream.group":
-                self.spans.add(sp.name, sp.start_ns, sp.end_ns)
-
-        def close_window(self):
-            if observers is not None and self.observe in observers:
-                observers.remove(self.observe)
-            super().close_window()
-
-    real = bench_run.Run
-    bench_run.Run = Observed
-    try:
-        argv = list(sys.argv[1:] if argv is None else argv)
-        rc = bench_run.main(argv + ["--trace", "1"],
-                            root=root, device=device)
-    finally:
-        bench_run.Run = real
+    argv = list(sys.argv[1:] if argv is None else argv)
+    rc = bench_run.main(argv + ["--trace", "1"], root=root, device=device,
+                        runs=runs)
     if rc != 0 or not runs:
         return rc
     r = runs[-1]

@@ -4,9 +4,11 @@
         --trace <0|1> [--control em_off]
 
 The cell names a configuration (``configs/<name>.json``: the reference
-genome, read shapes, driver and the limits of the check) and a traffic
-mix (``traffic/<name>.json``); per-layer metrics are read by
-``metrics/<name>.py``.  A run makes its reads from ``--seed``, sets up
+genome, read shapes, platform, driver and the limits of the check) and a
+traffic mix (``traffic/<name>.json``, whose own ``limits``, where it has
+them, replace the configuration's of the same names for its cells);
+per-layer metrics are read by ``metrics/<name>.py``.  A run makes its
+reads from ``--seed``, sets up
 (the index from the cache, inputs, one warm-up unit), measures for
 ``--seconds`` and checks the window's SAM against the plain reference in
 ``samcheck.py``.  ``--trace 0`` reports the cell's end-to-end metrics,
@@ -63,6 +65,27 @@ def written_bytes() -> int:
             if ln.startswith("wchar:"):
                 return int(ln.split()[1])
     return 0
+
+
+def limits_of(config: dict, traffic: dict) -> dict:
+    """The limits of a cell's check: the configuration's, each that the
+    traffic mix's ``limits`` names replaced by the mix's.  A name the
+    configuration lacks is refused, as is a limit that is not a number:
+    a mix sets no number of its own and leaves none uncompared."""
+    lim = dict(config["limits"])
+    mix = traffic.get("limits", {})
+    extra = sorted(set(mix) - set(lim))
+    if extra:
+        raise SystemExit(f"ema_bench: traffic {traffic['name']!r} sets "
+                         f"limits that configuration {config['name']!r} "
+                         f"does not have: {', '.join(extra)}")
+    bad = sorted(k for k, v in mix.items()
+                 if isinstance(v, bool) or not isinstance(v, (int, float)))
+    if bad:
+        raise SystemExit(f"ema_bench: traffic {traffic['name']!r} gives "
+                         f"no number for: {', '.join(bad)}")
+    lim.update(mix)
+    return lim
 
 
 def forbidden_modules() -> list:
@@ -128,11 +151,26 @@ class Run:
         self.window_start = self.window_end = None
         self.prof = None
         self.rss = None
+        self.program = []
         self.metrics_obj = None
         self.stages = None
         self.device_kind = (torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu")
         self.log = log
+
+    def _span_observers(self):
+        """The port's list of span observers; None on a program that
+        records no spans."""
+        from ema_tpu_torch.utils import metrics
+        return getattr(metrics, "SPAN_OBSERVERS", None)
+
+    def observe(self, sp) -> None:
+        """A program span of the window: kept, and but for a group's
+        latency (``stream.group``, no work) added to the spans that name
+        the device's idle gaps."""
+        self.program.append(sp)
+        if sp.name != "stream.group":
+            self.spans.add(sp.name, sp.start_ns, sp.end_ns)
 
     def open_window(self) -> None:
         import torch
@@ -141,6 +179,9 @@ class Run:
         if self.trace:
             from ema_tpu_torch.ops import sw as psw
             psw.LAUNCH_OBSERVERS.append(self.sw.observe)
+            observers = self._span_observers()
+            if observers is not None:
+                observers.append(self.observe)
             if self.device.type == "cuda":
                 from torch.profiler import ProfilerActivity, profile
                 self.prof = profile(activities=[ProfilerActivity.CUDA])
@@ -158,15 +199,20 @@ class Run:
         if self.trace:
             from ema_tpu_torch.ops import sw as psw
             psw.LAUNCH_OBSERVERS.remove(self.sw.observe)
+            observers = self._span_observers()
+            if observers is not None and self.observe in observers:
+                observers.remove(self.observe)
             if self.prof is not None:
                 self.prof.__exit__(None, None, None)
 
 
 def run_cell(root: str, workload: str, seed: int, seconds: float,
-             trace: bool, device: str = "cuda", control=None) -> dict:
+             trace: bool, device: str = "cuda", control=None,
+             runs=None) -> dict:
     """One run of a cell; returns the result line's dict (``checks``
     last).  ``device`` 'cpu' runs the port's plain PyTorch paths (tests
-    only: the benchmark itself refuses to run without a card)."""
+    only: the benchmark itself refuses to run without a card).  The
+    run's ``Run`` is appended to ``runs`` where it is given."""
     t_start = process_start_ns()
     bench = Bench(root)
     cell = bench.cell(workload)
@@ -182,7 +228,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
     tmp = tempfile.mkdtemp(prefix="ema_bench_")
     try:
         run = Run(bench, cell, seed, trace, dev, tmp)
+        if runs is not None:
+            runs.append(run)
         cfg = run.config
+        lim = limits_of(cfg, run.traffic)
         port_root = os.path.dirname(os.path.abspath(
             sys.modules["ema_tpu_torch"].__file__))
         ref = cache.ensure(cfg, port_root,
@@ -196,7 +245,8 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
                                       s["indel_rate"], s["indel_len"])
         run.pool = generate.make_pool(rng, sample, repeats, cfg["reads"],
                                       run.traffic,
-                                      int(run.traffic["pool_pairs"]))
+                                      int(run.traffic["pool_pairs"]),
+                                      platform=cfg["platform"])
         del sample
         driver = DRIVERS[cfg["driver"]](run)
         driver.setup()
@@ -225,7 +275,6 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         t_check = time.time()
         recs = samcheck.Records(run.pool)
         pairs = driver.collect(recs)
-        lim = cfg["limits"]
         got = samcheck.check(recs, genome, cfg["scoring"],
                              np.random.default_rng([seed, 11]),
                              int(cfg["check_sample_records"]),
@@ -284,9 +333,10 @@ def run_cell(root: str, workload: str, seed: int, seconds: float,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def main(argv=None, root=None, device: str = "cuda") -> int:
+def main(argv=None, root=None, device: str = "cuda", runs=None) -> int:
     """The command line.  ``root`` and ``device`` are for the tests, which
-    drive a run past the look for a card with ``device='cpu'``."""
+    drive a run past the look for a card with ``device='cpu'``; ``runs``
+    is ``run_cell``'s."""
     ap = argparse.ArgumentParser(prog="ema_bench.run",
                                  description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -305,7 +355,7 @@ def main(argv=None, root=None, device: str = "cuda") -> int:
                 f"{torch.cuda.device_count()} visible")
             return 3
     result = run_cell(root, a.workload, a.seed, a.seconds, bool(a.trace),
-                      device=device, control=a.control)
+                      device=device, control=a.control, runs=runs)
     bad = forbidden_modules()
     if bad:
         log(f"loaded in this process: {', '.join(bad)}; no result")

@@ -38,7 +38,7 @@ import re
 
 import numpy as np
 
-from ema_bench.generate import revcomp
+from ema_bench.generate import name_pair, revcomp
 
 NEG = -(1 << 28)
 _CIGAR = re.compile(r"(\d+)([MIDSHN=X])")
@@ -74,7 +74,7 @@ class Records:
             f = ln.rstrip("\n").split("\t")
             q = f[0]
             try:
-                k = int(q[q.index("p") + 1:])
+                k = name_pair(q)[1]
             except ValueError:
                 self.bad_pairs += 1
                 continue

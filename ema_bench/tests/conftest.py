@@ -76,6 +76,38 @@ def make_tiny_root(dst: str) -> str:
     return dst
 
 
+# each platform's ``reads`` keys (EMA src/techs.c): barcode bases, or for
+# integer barcodes the range they are drawn from (a TruSeq SLR plate's
+# 384 wells)
+PLATFORM_READS = {"10x": {"bc_len": 16}, "dbs": {"bc_len": 20},
+                  "tellseq": {"bc_len": 18}, "haplotag": {"bc_len": 12},
+                  "tru": {"bc_len": 0, "bc_range": [1, 384]},
+                  "cpt": {"bc_len": 0, "bc_range": [1, 384]}}
+
+
+def add_platform_cell(root: str, platform: str) -> str:
+    """A tiny stream cell ``tiny-<platform>`` under a tiny root, added as
+    files: the tiny stream configuration with the platform and its
+    barcodes, on the tiny ``linked-wgs`` mix.  Returns the cell's name."""
+    here = os.path.join(root, "ema_bench")
+    name = "tiny-" + platform
+    c = json.load(open(os.path.join(here, "configs",
+                                    "tiny-tenx-chr20-stream.json")))
+    c["name"] = name
+    c["platform"] = platform
+    c["reads"].pop("bc_range", None)
+    c["reads"].update(PLATFORM_READS[platform])
+    json.dump(c, open(os.path.join(here, "configs", name + ".json"), "w"))
+    path = os.path.join(root, "BENCHMARK.json")
+    bench = json.load(open(path))
+    if all(w["name"] != name for w in bench["workloads"]):
+        bench["workloads"].append({"name": name, "config": name,
+                                   "traffic": "tiny-linked-wgs", "chips": 1,
+                                   "why": f"a tiny {platform} stream cell"})
+        json.dump(bench, open(path, "w"))
+    return name
+
+
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     return make_tiny_root(str(tmp_path_factory.mktemp("bench")))

@@ -18,8 +18,8 @@ def em_gate(monkeypatch):
     monkeypatch.setattr(pconfig, "MIN_PAIRS_FOR_EM", pconfig.MIN_PAIRS_FOR_EM)
 
 
-def _last_line(capsys, argv, root, rc=0):
-    assert bench_run.main(argv, root=root, device="cpu") == rc
+def _last_line(capsys, argv, root, rc=0, device="cpu"):
+    assert bench_run.main(argv, root=root, device=device) == rc
     out, err = capsys.readouterr()
     return json.loads(out.strip().splitlines()[-1]), err
 
@@ -94,7 +94,20 @@ def test_control_em_off_is_not_correct(tiny_root, em_gate, seed):
     assert off["em_off_truth_pct"] > 3 * max(sound["em_off_truth_pct"], 1)
 
 
-def test_fault_half_the_pairs_left_out(tiny_root, monkeypatch):
+def _cell(root, cell):
+    """``cell``, made first where it is a platform's tiny stream cell
+    (``tiny-tru``)."""
+    from conftest import PLATFORM_READS, add_platform_cell
+    if cell[len("tiny-"):] in PLATFORM_READS:
+        add_platform_cell(root, cell[len("tiny-"):])
+    return cell
+
+
+STREAM_CELLS = ["tiny-stream-wgs", "tiny-tru"]
+
+
+@pytest.mark.parametrize("cell", STREAM_CELLS)
+def test_fault_half_the_pairs_left_out(tiny_root, monkeypatch, cell):
     from ema_tpu_torch.core.pipeline import Aligner
     real = Aligner.iter_batch_sam
 
@@ -103,12 +116,14 @@ def test_fault_half_the_pairs_left_out(tiny_root, monkeypatch):
             yield [ln for ln in lines
                    if int(ln.split("\t", 1)[0].split("p")[-1]) % 2]
     monkeypatch.setattr(Aligner, "iter_batch_sam", halved)
-    ok, got = _checks(tiny_root, "tiny-stream-wgs", 7)
+    ok, got = _checks(tiny_root, _cell(tiny_root, cell), 7)
     assert not ok and got["bad_pairs"] > 0
 
 
 def test_fault_scorer_returns_its_output_unchanged(tiny_root, monkeypatch):
-    """The SW step hands back its output buffer as it found it (zeros)."""
+    """The SW step hands back its output buffer as it found it (zeros).
+    (On a stream cell no pass under this fault ends within 15 minutes on
+    the CPU, so the stream cells take the emission's fault below.)"""
     import torch
     from ema_tpu_torch.core import pipeline
 
@@ -120,9 +135,33 @@ def test_fault_scorer_returns_its_output_unchanged(tiny_root, monkeypatch):
     assert not ok
 
 
-@pytest.mark.parametrize("what", ["pos", "cigar", "mi"])
+@pytest.mark.parametrize("cell", STREAM_CELLS)
+def test_fault_emission_returns_its_last_output_unchanged(tiny_root,
+                                                          monkeypatch, cell):
+    """The SAM text step hands back the lines of its first call on every
+    later call, its output never made anew (a window of several flush
+    batches: the warm-up's batch is the pool's first, whose lines the
+    window's first batch rightly repeats)."""
+    from ema_tpu_torch.core import samout
+    real = samout.emit_groups_lines
+    first = []
+
+    def stale(*a, **kw):
+        out = real(*a, **kw)
+        if not first:
+            first.append(out)
+        return first[0]
+    monkeypatch.setattr(samout, "emit_groups_lines", stale)
+    ok, got = _checks(tiny_root, _cell(tiny_root, cell), 8, seconds=5.0)
+    assert not ok and got["bad_pairs"] > 0
+
+
+@pytest.mark.parametrize("what,cell", [
+    ("pos", "tiny-stream-wgs"), ("cigar", "tiny-stream-wgs"),
+    ("mi", "tiny-x-wgs"), ("pos", "tiny-tru"), ("cigar", "tiny-tru")])
 def test_fault_an_answer_altered_where_it_is_produced(tiny_root,
-                                                      monkeypatch, what):
+                                                      monkeypatch, what,
+                                                      cell):
     """One record in 50 altered as the SAM text is made: its position
     moved, its CIGAR's first match shortened into a clip, or its MI."""
     from ema_tpu_torch.core import samout
@@ -148,8 +187,7 @@ def test_fault_an_answer_altered_where_it_is_produced(tiny_root,
         return [[alter(ln) if i % 50 == 0 else ln
                  for i, ln in enumerate(lines)] for lines in out]
     monkeypatch.setattr(samout, "emit_groups_lines", altered)
-    cell = "tiny-x-wgs" if what == "mi" else "tiny-stream-wgs"
-    ok, got = _checks(tiny_root, cell, 9)
+    ok, got = _checks(tiny_root, _cell(tiny_root, cell), 9)
     assert not ok
     key = {"pos": "off_truth_pct", "cigar": "sw_gap_max",
            "mi": "mi_outside"}[what]
@@ -182,7 +220,7 @@ def test_stream_cell_on_the_card(card, capsys):
     res, _ = _last_line(capsys, ["--workload", "stream-wgs", "--seed",
                                  str(np.random.SeedSequence().entropy
                                      % 2 ** 33), "--seconds", "5",
-                                 "--trace", "1"], None)
+                                 "--trace", "1"], None, device="cuda")
     assert res["correct"] is True
     assert res["device"]["kind"] == card
     assert 0 < res["device"]["busy_s"] <= res["device"]["window_s"]
